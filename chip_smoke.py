@@ -1,0 +1,280 @@
+#!/usr/bin/env python3
+"""Smoke run of fqtool_tpu_torch on one CUDA card (no JAX anywhere).
+
+Phases, each of which stops the run with a nonzero exit on failure:
+
+1. the card's name and power limit (nvidia-smi), and whether the native
+   FASTQ core (io/native.py) loaded or the host runs its pure-Python path;
+2. build the CUDA overlap kernel from csrc/overlap.cu with nvcc;
+3. the kernel against its plain PyTorch version, both on the card, output
+   for output (exact: all outputs are integers), over several shapes and
+   parameters, and both timed per 16384 x 151 chunk with CUDA events;
+4. the main path: 1,000,000 synthetic 2x151 bp pairs through
+   ``fqtool_tpu_torch.main`` on cuda with ``-q -f 3 -t 2`` and every output
+   stream; the kernel's launch counter must cover every chunk.  The run is
+   traced with torch.profiler (device activity only), which gives the
+   card's busy time against the run's wall and the kernels that fill it;
+5. the first 50,000 of those pairs once on cuda and once on the CPU (plain
+   versions): records byte-identical, reports equal under compare_json.
+
+The second-to-last line is the kernel table as JSON, the last line
+``{"ok": true, "device": {...}}``.  Run from the repository root:
+``python3 chip_smoke.py`` (``--pairs``/``--subset`` shrink phases 4/5).
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+os.environ.setdefault("FQTOOL_TPU_TRACE", "1")  # host stage split, phase 4
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+
+from fqtool_tpu_torch.host import native, tracing  # noqa: E402
+from fqtool_tpu_torch.main import main as cli_main  # noqa: E402
+from fqtool_tpu_torch.ops import overlap, overlap_cuda  # noqa: E402
+from tests.oracle import compare_json, diff_fastq, read_fastq  # noqa: E402
+from tests.torch_pairs import make_pairs, write_pairs  # noqa: E402
+
+PE_CHUNK = 16384
+FLAGS = ["-q", "-f", "3", "-t", "2"]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def phase_card() -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(smi)  # the card's name and power limit, as nvidia-smi prints them
+    loaded = native.get_lib() is not None
+    log(f"native FASTQ core libfastq_core.so loaded: {loaded}"
+        + ("" if loaded else " (host runs the pure-Python path)"))
+
+
+def phase_build() -> None:
+    so = overlap_cuda.library_path()
+    cached = so.exists()
+    t0 = time.perf_counter()
+    overlap_cuda.build()
+    log(f"kernel build: {time.perf_counter() - t0:.3f} s"
+        + (" (library already built)" if cached else " (nvcc)"))
+    for line in so.with_suffix(".log").read_text().splitlines():
+        if "ptxas info" in line or "spill" in line:  # registers, spills
+            log(line.strip())
+
+
+def _case(B, L1, L2, seed, zero_frac=0.0):
+    """Device planes at the main path's shapes: widths rounded up to 8 as the
+    pack reader does, lengths mostly full, a fraction of rows at length 0."""
+    s1, _, s2, _, _ = make_pairs(B, seed, max(L1, L2))
+    rng = np.random.default_rng(seed + 1000)
+    r1 = np.full(B, L1, np.int32)
+    r2 = np.full(B, L2, np.int32)
+    short = rng.random(B) < 0.2
+    r1[short] = rng.integers(0, L1 + 1, short.sum())
+    r2[short] = rng.integers(0, L2 + 1, short.sum())
+    r1[rng.random(B) < zero_frac] = 0
+    r2[rng.random(B) < zero_frac] = 0
+    w1, w2 = -(-L1 // 8) * 8, -(-L2 // 8) * 8
+    p1 = np.zeros((B, w1), np.uint8)
+    p2 = np.zeros((B, w2), np.uint8)
+    p1[:, :L1] = s1[:, :L1]
+    p2[:, :L2] = s2[:, :L2]
+    p1[np.arange(w1)[None, :] >= r1[:, None]] = 0
+    p2[np.arange(w2)[None, :] >= r2[:, None]] = 0
+    dev = torch.device("cuda")
+    return tuple(torch.as_tensor(a).to(dev) for a in (p1, r1, p2, r2))
+
+
+def _time_ms(fn, reps=20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_kernel() -> dict:
+    cases = [(PE_CHUNK, 151, 151, 5, 30, 0.0), (PE_CHUNK, 151, 100, 5, 30, 0.0),
+             (4096, 40, 40, 5, 30, 0.0), (1024, 500, 300, 5, 30, 0.0),
+             (4096, 151, 151, 5, 30, 0.3)]
+    cases += [(4096, 151, 151, d, r, 0.05)
+              for d in (0, 1, 5, 10) for r in (10, 30, 60)]
+    max_err = 0
+    for k, (B, L1, L2, dl, req, zf) in enumerate(cases):
+        s1, r1, s2, r2 = _case(B, L1, L2, seed=100 + k, zero_frac=zf)
+        got = overlap_cuda.analyze_cuda(s1, r1, s2, r2, dl, req)
+        torch.cuda.synchronize()
+        ref = overlap.analyze(s1, r1, s2, r2, dl, req)
+        errs = {}
+        for name, a, b in zip(ref._fields, got, ref):
+            errs[name] = int((a.long() - b.long()).abs().max()) if B else 0
+        err = max(errs.values())
+        max_err = max(max_err, err)
+        hits = int(got.overlapped.sum())
+        log(f"kernel vs plain B={B} L={L1}/{L2} diff_limit={dl} require={req} "
+            f"zero_rows={zf}: overlapped {hits}/{B}, max |err| {errs} "
+            "(tolerance 0: integer outputs)")
+        if err:
+            raise SystemExit(f"overlap kernel disagrees with the plain version: {errs}")
+    s1, r1, s2, r2 = _case(PE_CHUNK, 151, 151, seed=7)
+    # plain, kernel, kernel, plain: both timed inside one call on one card
+    t_plain = [_time_ms(lambda: overlap.analyze(s1, r1, s2, r2, 5, 30))]
+    t_kern = [_time_ms(lambda: overlap_cuda.analyze_cuda(s1, r1, s2, r2, 5, 30))
+              for _ in range(2)]
+    t_plain.append(_time_ms(lambda: overlap.analyze(s1, r1, s2, r2, 5, 30)))
+    ms, plain_ms = min(t_kern), min(t_plain)
+    log(f"per 16384x151 chunk: kernel {t_kern} ms, plain {t_plain} ms")
+    return {"name": "overlap_analyze", "route": "cuda",
+            "source": "fqtool_tpu_torch/csrc/overlap.cu",
+            "replaces": "fqtool_tpu/ops/pallas_overlap2.py:89",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def _run_cli(work: Path, r1: Path, r2: Path, device: str, tag: str) -> dict:
+    out = {k: work / f"{tag}_{k}.fq.gz"
+           for k in ("o1", "o2", "up1", "up2", "failed")}
+    argv = ["-i", str(r1), "-I", str(r2), "-o", str(out["o1"]), "-O", str(out["o2"]),
+            *FLAGS, "--unpaired_read1", str(out["up1"]),
+            "--unpaired_read2", str(out["up2"]), "--failed_out", str(out["failed"]),
+            "-J", str(work / f"{tag}.json"), "-H", str(work / f"{tag}.html")]
+    os.environ["FQTOOL_TPU_TORCH_DEVICE"] = device
+    rc = cli_main(argv)
+    if rc != 0:
+        raise SystemExit(f"fqtool_tpu_torch.main returned {rc} on {device}")
+    out["json"] = work / f"{tag}.json"
+    return out
+
+
+def _device_busy(prof) -> tuple:
+    """Busy ms of the card in a profiled run (the union of its kernel and
+    copy intervals) and the six names that took the most device time."""
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + (b - a) / 1e3
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return busy_us / 1e3, top
+
+
+def phase_main(work: Path, pairs: int) -> tuple:
+    r1, r2 = work / "r1.fq", work / "r2.fq"
+    t0 = time.perf_counter()
+    write_pairs(r1, r2, pairs, seed=2024)
+    log(f"generated {pairs} pairs of 2x151 bp in {time.perf_counter() - t0:.3f} s")
+    tracing.reset()
+    overlap_cuda.launches = 0
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = _run_cli(work, r1, r2, "cuda", "cuda_full")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = overlap_cuda.launches
+    chunks = -(-pairs // PE_CHUNK)
+    rep = json.loads(out["json"].read_text())
+    ins = rep["InsertSize"]
+    log(f"main path: {pairs} pairs in {wall:.3f} s = {pairs / wall:.1f} pairs/s; "
+        f"overlap kernel launches {launches} for {chunks} chunks; "
+        f"insert-size peak {ins['Peak']}, unknown {ins['Unknown']}")
+    log("host stage split: " + json.dumps(tracing.snapshot(), sort_keys=True))
+    busy_ms, top = _device_busy(prof)
+    if busy_ms > 0:
+        log(f"main path on the card (torch.profiler): {busy_ms:.3f} ms busy of "
+            f"{wall * 1e3:.3f} ms wall, idle share {1 - busy_ms / (wall * 1e3):.4f}; "
+            "top device time (ms): "
+            + json.dumps([[n, round(ms, 3)] for n, ms in top]))
+    else:
+        log("main path on the card: device time not measured "
+            "(torch.profiler recorded no device activity)")
+    if launches < chunks:
+        raise SystemExit(f"the main path launched the overlap kernel {launches} "
+                         f"times for {chunks} chunks")
+    before = rep["Summary"]["BeforeFiltering"]["TotalReads"]
+    if before != 2 * pairs or sum(ins["Histogram"]) + ins["Unknown"] != pairs:
+        raise SystemExit(f"report counts {before} reads and "
+                         f"{sum(ins['Histogram']) + ins['Unknown']} insert sizes "
+                         f"for {pairs} pairs")
+    return r1, r2, launches
+
+
+def phase_subset(work: Path, r1: Path, r2: Path, subset: int) -> None:
+    s1, s2 = work / "s1.fq", work / "s2.fq"
+    for src, dst in ((r1, s1), (r2, s2)):
+        with open(src, "rb") as f, open(dst, "wb") as g:
+            g.writelines(itertools.islice(f, 4 * subset))
+    gpu = _run_cli(work, s1, s2, "cuda", "sub_cuda")
+    t0 = time.perf_counter()
+    cpu = _run_cli(work, s1, s2, "cpu", "sub_cpu")
+    log(f"subset of {subset} pairs on the CPU (plain versions): "
+        f"{time.perf_counter() - t0:.3f} s")
+    for k in ("o1", "o2", "up1", "up2", "failed"):
+        a, b = read_fastq(gpu[k]), read_fastq(cpu[k])
+        d = diff_fastq(a, b)
+        if d:
+            raise SystemExit(f"{k}: cuda and cpu records differ: {d}")
+        log(f"subset {k}: {len(a)} records identical on cuda and cpu")
+    d = compare_json(json.loads(gpu["json"].read_text()),
+                     json.loads(cpu["json"].read_text()))
+    if d:
+        raise SystemExit(f"cuda and cpu reports differ: {d[:10]}")
+    log("subset reports equal under compare_json")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--pairs", type=int, default=1_000_000)
+    ap.add_argument("--subset", type=int, default=50_000)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.stderr.write("chip_smoke: torch sees no CUDA device\n")
+        return 1
+    phase_card()
+    phase_build()
+    entry = phase_kernel()
+    work = ROOT / "build" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        r1, r2, launches = phase_main(work, args.pairs)
+        phase_subset(work, r1, r2, min(args.subset, args.pairs))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    entry["launches"] = launches
+    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

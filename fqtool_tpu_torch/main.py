@@ -1,0 +1,130 @@
+"""Program entry point: ``python -m fqtool_tpu_torch.main``, same argv as
+``python -m fqtool_tpu.main``.
+
+CLI parse -> refusal of the stages not ported yet -> evaluation pre-passes
+(read length, ORS; reference: src/main.cpp:128-143) -> the
+paired-end runner on one torch device.  The device comes from
+``FQTOOL_TPU_TORCH_DEVICE`` (default ``cuda``); asking for CUDA where there is
+none is an error, never a silent run on the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from typing import List, Optional
+
+from fqtool_tpu.config.cli import (build_parser, namespace_to_options,
+                                   parse_args)
+from fqtool_tpu.config.options import Options, OptionError
+from fqtool_tpu.host import evaluator
+from fqtool_tpu.io.fastq import FastqIOError
+
+from .pipeline.runner import loginfo
+
+
+def _refused(opt: Options) -> Optional[str]:
+    """The first requested stage or run mode this package cannot run yet, or
+    None.  Decided on the parsed options, so bundled short flags (``-qu``) and
+    shortened long names count as what they parse to."""
+    multi_host = bool(os.environ.get("FQTOOL_TPU_COORDINATOR")) and \
+        int(os.environ.get("FQTOOL_TPU_NPROCS", "0") or 0) > 1
+    asked = (
+        (not opt.in2, "single-end input (no -I)"),
+        (opt.interleaved_input, "--in_fq_interleaved"),
+        ("/dev/stdin" in (opt.in1, opt.in2), "input from /dev/stdin"),
+        (opt.merge_pe.enabled, "-m"),
+        (bool(opt.merge_pe.out), "--merge_output"),
+        (opt.merge_pe.discard_unmerged, "--discard_unmerged"),
+        (opt.correction.enabled, "-c"),
+        (opt.adapter.enable_trimming, "-a"),
+        (bool(opt.adapter.input_adapter_seq_r1), "--adapter_of_read1"),
+        (bool(opt.adapter.input_adapter_seq_r2), "--adapter_of_read2"),
+        (opt.adapter.enable_detect_for_pe, "--detect_pe_adapter"),
+        (opt.polyg_trim.enabled, "-g"),
+        (opt.polyx_trim.enabled, "-x"),
+        (opt.kmer.enabled, "--kmer"),
+        (opt.duplicate.enabled, "-d"),
+        (opt.umi.enabled, "-u"),
+        (opt.split.by_file_number, "-s"),
+        (opt.split.by_file_lines, "-S"),
+        (multi_host, "multi-host runs (FQTOOL_TPU_COORDINATOR)"),
+    )
+    return next((what for on, what in asked if on), None)
+
+
+def device_from_env() -> str:
+    """The torch device named by FQTOOL_TPU_TORCH_DEVICE (default cuda)."""
+    import torch
+
+    name = os.environ.get("FQTOOL_TPU_TORCH_DEVICE", "cuda")
+    if torch.device(name).type == "cuda" and not torch.cuda.is_available():
+        raise OptionError(f"FQTOOL_TPU_TORCH_DEVICE={name}, but torch sees no "
+                          "CUDA device")
+    return name
+
+
+def _activate_headcache(opt: Options) -> None:
+    """Cache the head packs the pre-passes consume, framed as the main pass
+    reads them, so every input byte is inflated and tokenized once
+    (fqtool_tpu/io/headcache.py).  Only worth it when a pre-pass reads a
+    substantial head (the ORS prefix)."""
+    if not opt.over_rep.enabled:
+        return
+    from fqtool_tpu.io import headcache
+
+    from .pipeline.pe_runner import main_pack_reads
+    pack_reads = main_pack_reads(opt)
+    headcache.activate(opt.in1, pack_reads, opt.phred64)
+    headcache.activate(opt.in2, pack_reads, opt.phred64)
+
+
+def _prepass(opt: Options) -> None:
+    """Evaluation pre-passes (main.cpp:128-143) of the ported configuration."""
+    evaluator.evaluate_read_len(opt)
+    if opt.over_rep.enabled:
+        evaluator.evaluate_over_rep_seqs(opt)
+
+
+def run(opt: Options, device: str) -> None:
+    from fqtool_tpu.host.tracing import stage
+    from fqtool_tpu.io import headcache
+    from fqtool_tpu.io.fastq import set_worker_threads
+
+    from .pipeline.pe_runner import PairEndRunner
+
+    # -w sizes the shared host pool (deflate/format)
+    set_worker_threads(opt.thread)
+    try:
+        _activate_headcache(opt)
+        with stage("prepass"):
+            _prepass(opt)
+        PairEndRunner(opt, device).run()
+    finally:
+        # drop any cache the pipeline did not drain: a stale entry would
+        # alias a reused path in a later in-process run
+        headcache.discard_all()
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    try:
+        # refused before validation, so a refused flag is named even where
+        # the parser would reject it for a missing companion flag
+        refused = _refused(namespace_to_options(build_parser().parse_args(argv)))
+        if refused is not None:
+            sys.stderr.write(f"not yet ported in fqtool_tpu_torch: {refused}\n")
+            return 255
+        opt = parse_args(argv)
+        device = device_from_env()
+        loginfo(f"fqtool_tpu_torch on {device}")
+        run(opt, device)
+    except (OptionError, FastqIOError) as e:
+        # reference: util::errorExit prints and exits -1 (util.h:303-306)
+        sys.stderr.write(f"error: {e}\n")
+        return 255
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,140 @@
+"""``python -m fqtool_tpu_torch.main`` against ``python -m fqtool_tpu.main``.
+
+Both CLIs run in-process on the same paired inputs with the same argv; every
+output stream must hold the same records and the JSON reports must agree
+under ``compare_json``.  The port runs on the CPU here
+(``FQTOOL_TPU_TORCH_DEVICE=cpu``); the flags of stages it does not run yet
+exit with 255, and asking for CUDA where there is none is an error.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from .oracle import compare_json, diff_fastq, read_fastq
+from .test_golden_random import gen_fastq
+from .torch_pairs import write_pairs
+
+REPO = Path(__file__).resolve().parent.parent
+OUTS = ("o1.fq.gz", "o2.fq.gz", "up1.fq.gz", "up2.fq.gz", "failed.fq.gz")
+
+
+def _argv(r1, r2, *flags):
+    return ["-i", str(r1), "-I", str(r2), "-o", "o1.fq.gz", "-O", "o2.fq.gz",
+            "--unpaired_read1", "up1.fq.gz", "--unpaired_read2", "up2.fq.gz",
+            "--failed_out", "failed.fq.gz", *flags]
+
+
+def _run(main, argv, workdir: Path) -> int:
+    workdir.mkdir(parents=True, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        return main(argv)
+    finally:
+        os.chdir(cwd)
+
+
+def _compare(tmp_path: Path, argv, monkeypatch):
+    from fqtool_tpu.main import main as jax_main
+    from fqtool_tpu_torch.main import main as torch_main
+    monkeypatch.setenv("FQTOOL_TPU_TORCH_DEVICE", "cpu")
+    assert _run(jax_main, argv, tmp_path / "jax") == 0
+    assert _run(torch_main, argv, tmp_path / "torch") == 0
+    n = 0
+    for name in OUTS:
+        ours = read_fastq(tmp_path / "torch" / name)
+        d = diff_fastq(ours, read_fastq(tmp_path / "jax" / name))
+        assert not d, f"{name}: " + "\n".join(d)
+        n += len(ours)
+    with open(tmp_path / "torch" / "report.json") as f:
+        ours = json.load(f)
+    with open(tmp_path / "jax" / "report.json") as f:
+        ref = json.load(f)
+    diffs = compare_json(ours, ref)
+    assert not diffs, "\n".join(diffs[:40])
+    return ours, n
+
+
+def test_cli_planted_overlaps(tmp_path, monkeypatch):
+    write_pairs(tmp_path / "r1.fq", tmp_path / "r2.fq", 3000, seed=11)
+    rep, n = _compare(tmp_path, _argv(tmp_path / "r1.fq", tmp_path / "r2.fq",
+                                      "-q", "-f", "3", "-t", "2"), monkeypatch)
+    assert rep["InsertSize"]["Unknown"] < 3000 and n > 5000
+
+
+def test_cli_random_shapes(tmp_path, monkeypatch):
+    gen_fastq(tmp_path / "r1.fq", 800, 4, paired_with=tmp_path / "r2.fq")
+    _compare(tmp_path, _argv(tmp_path / "r1.fq", tmp_path / "r2.fq",
+                             "-q", "--enable_cut_front", "--enable_cut_tail",
+                             "-l", "--max_length", "140", "-y", "-F", "2"),
+             monkeypatch)
+
+
+# (flags, the flag the refusal names): bundled short flags and shortened long
+# names are refused as what they parse to
+REFUSED = [
+    (["-m", "--merge_output", "m.fq"], "-m"), (["--discard_unmerged"], None),
+    (["-c"], None), (["-a"], None), (["--adapter_of_read1", "ACGT"], None),
+    (["--adapter_of_read2", "ACGT"], None), (["--detect_pe_adapter"], None),
+    (["-g"], None), (["-x"], None), (["--kmer"], None), (["-d"], None),
+    (["-u"], None), (["-s"], None), (["-S"], None), (["--in_fq_interleaved"], None),
+    (["-qu", "--umi_location", "1", "--umi_length", "8"], "-u"),
+    (["-qa"], "-a"), (["-qd"], "-d"), (["-qg"], "-g"),
+    (["--detect_pe"], "--detect_pe_adapter"),
+]
+
+
+@pytest.mark.parametrize("flags,named", REFUSED,
+                         ids=[f[0] for f, _ in REFUSED])
+def test_refused_flag_exits_255(tmp_path, flags, named, capsys, monkeypatch):
+    from fqtool_tpu_torch.main import main
+    monkeypatch.setenv("FQTOOL_TPU_TORCH_DEVICE", "cpu")
+    write_pairs(tmp_path / "r1.fq", tmp_path / "r2.fq", 10, seed=1)
+    rc = _run(main, _argv(tmp_path / "r1.fq", tmp_path / "r2.fq", *flags), tmp_path)
+    assert rc == 255
+    msg = f"not yet ported in fqtool_tpu_torch: {named or flags[0]}\n"
+    assert capsys.readouterr().err.endswith(msg)
+    assert not (tmp_path / "o1.fq.gz").exists()
+
+
+def test_single_end_and_multihost_refused(tmp_path, capsys, monkeypatch):
+    from fqtool_tpu_torch.main import main
+    monkeypatch.setenv("FQTOOL_TPU_TORCH_DEVICE", "cpu")
+    write_pairs(tmp_path / "r1.fq", tmp_path / "r2.fq", 10, seed=1)
+    assert _run(main, ["-i", str(tmp_path / "r1.fq"), "-o", "o.fq"], tmp_path) == 255
+    assert "single-end" in capsys.readouterr().err
+    monkeypatch.setenv("FQTOOL_TPU_COORDINATOR", "localhost:1")
+    monkeypatch.setenv("FQTOOL_TPU_NPROCS", "2")
+    assert _run(main, _argv(tmp_path / "r1.fq", tmp_path / "r2.fq"), tmp_path) == 255
+    assert "multi-host" in capsys.readouterr().err
+
+
+def test_cuda_without_a_card_is_an_error(tmp_path, capsys, monkeypatch):
+    import torch
+
+    from fqtool_tpu_torch.main import main
+    if torch.cuda.is_available():
+        pytest.skip("this check is for hosts without a CUDA device")
+    monkeypatch.setenv("FQTOOL_TPU_TORCH_DEVICE", "cuda")
+    write_pairs(tmp_path / "r1.fq", tmp_path / "r2.fq", 10, seed=1)
+    rc = _run(main, _argv(tmp_path / "r1.fq", tmp_path / "r2.fq", "-q"), tmp_path)
+    assert rc != 0
+    assert "CUDA" in capsys.readouterr().err
+    assert not (tmp_path / "o1.fq.gz").exists()
+
+
+def test_chip_smoke_fails_without_a_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this check is for hosts without a CUDA device")
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,49 @@
+"""fqtool_tpu_torch must run where JAX is not installed (the GPU hosts).
+
+A subprocess installs an import hook that refuses ``jax``/``jaxlib``, then
+runs the port's CLI on a small paired input on the CPU, imports
+``chip_smoke`` (and with it everything the smoke run uses), and checks that
+no JAX module was loaded on the way.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+from .torch_pairs import write_pairs
+
+REPO = Path(__file__).resolve().parent.parent
+
+_SCRIPT = r"""
+import importlib.abc, sys
+
+class NoJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError(f"{name} is blocked: fqtool_tpu_torch must not import JAX")
+
+sys.meta_path.insert(0, NoJax())
+from fqtool_tpu_torch.main import main
+rc = main(sys.argv[1:])
+import chip_smoke
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+assert not loaded, loaded
+sys.exit(rc)
+"""
+
+
+def test_port_cli_runs_without_jax(tmp_path):
+    write_pairs(tmp_path / "r1.fq", tmp_path / "r2.fq", 500, seed=3)
+    env = dict(os.environ, FQTOOL_TPU_TORCH_DEVICE="cpu",
+               PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    argv = ["-i", "r1.fq", "-I", "r2.fq", "-o", "o1.fq.gz", "-O", "o2.fq.gz",
+            "-q", "-f", "3", "-t", "2", "--unpaired_read1", "up1.fq.gz",
+            "--failed_out", "failed.fq.gz", "--ora"]
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT, *argv], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert (tmp_path / "o1.fq.gz").stat().st_size > 0
+    assert (tmp_path / "report.json").exists()

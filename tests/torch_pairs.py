@@ -1,0 +1,115 @@
+"""Synthetic paired-end reads for the fqtool_tpu_torch tests and chip_smoke.py.
+
+Pairs are read from both ends of a random fragment whose length (the insert
+size) is drawn from about N(250, 75) and clipped to [60, 600], so most 2x151 bp
+pairs truly overlap and some run past the fragment into random bases (an
+adapter stand-in).  About 1% substitutions, a few N runs, and a quality
+profile that decays along the read.  numpy only: no JAX, no torch.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+_ACGT = np.frombuffer(b"ACGT", np.uint8)
+_COMP = np.full(256, ord("N"), np.uint8)
+for _s, _d in zip(b"ACGTN", b"TGCAN"):
+    _COMP[_s] = _d
+
+
+def make_pairs(n: int, seed: int, read_len: int = 151):
+    """Return (seq1, qual1, seq2, qual2, isize): uint8 [n, read_len] ASCII
+    planes and the int32 insert sizes they were cut from."""
+    rng = np.random.default_rng(seed)
+    isize = np.clip(np.rint(rng.normal(250, 75, n)), 60, 600).astype(np.int32)
+    frag = _ACGT[rng.integers(0, 4, (n, 600), dtype=np.uint8)]
+    j = np.arange(read_len)[None, :]
+    inside = j < isize[:, None]
+    filler = _ACGT[rng.integers(0, 4, (2, n, read_len), dtype=np.uint8)]
+    seq1 = np.where(inside, frag[:, :read_len], filler[0])
+    back = np.take_along_axis(frag, np.clip(isize[:, None] - 1 - j, 0, 599), axis=1)
+    seq2 = np.where(inside, _COMP[back], filler[1])
+    quals = []
+    for seq in (seq1, seq2):
+        sub = rng.random(seq.shape) < 0.01
+        seq[sub] = _ACGT[rng.integers(0, 4, int(sub.sum()), dtype=np.uint8)]
+        # N runs of 1-8 bases in ~0.5% of the reads
+        rows = np.flatnonzero(rng.random(n) < 0.005)
+        starts = rng.integers(0, read_len, len(rows))
+        lens = rng.integers(1, 9, len(rows))
+        for r, s, k in zip(rows, starts, lens):
+            seq[r, s : s + k] = ord("N")
+        q = 38 - 14 * j / read_len + rng.normal(0, 4, seq.shape)
+        q = np.clip(np.rint(q), 2, 41).astype(np.uint8)
+        q[seq == ord("N")] = 2
+        quals.append(q + 33)
+    return seq1, quals[0], seq2, quals[1], isize
+
+
+def kernel_params(*flags: str):
+    """(p, p2) KernelParams of a paired-end argv with ``flags``, derived as
+    ``config.cli.parse_args`` derives them (no input files needed)."""
+    from fqtool_tpu.config.cli import build_parser, namespace_to_options
+    argv = ["-i", "r1.fq", "-I", "r2.fq", "-o", "o1.fq", "-O", "o2.fq", *flags]
+    opt = namespace_to_options(build_parser().parse_args(argv))
+    opt.update(argv)
+    return opt.kernel_params(is_r2=False), opt.kernel_params(is_r2=True)
+
+
+def random_batch(rng, B: int = 256, L: int = 152):
+    """(seq, qual, rlen) with the edge cases of a real pack: lengths from 0 to
+    L, zero padding past the length, N runs, low-complexity rows and
+    qualities at '!' and at 'J' and above."""
+    seq = _ACGT[rng.integers(0, 4, (B, L), dtype=np.uint8)]
+    seq[rng.random((B, L)) < 0.02] = ord("N")
+    for r in rng.choice(B, B // 16, replace=False):
+        s = rng.integers(0, L)
+        seq[r, s : s + rng.integers(1, 30)] = ord("N")
+    for r in rng.choice(B, B // 16, replace=False):
+        seq[r, :] = _ACGT[rng.integers(0, 4)]  # homopolymer
+    qual = rng.integers(33, 76, (B, L)).astype(np.uint8)
+    qual[rng.random((B, L)) < 0.05] = ord("!")
+    lo = rng.choice(B, B // 8, replace=False)
+    qual[lo, :] = rng.integers(33, 45, (len(lo), L))
+    hi = rng.choice(B, B // 8, replace=False)
+    qual[hi, :] = rng.integers(74, 80, (len(hi), L))
+    rlen = rng.integers(0, L + 1, B).astype(np.int32)
+    rlen[: B // 16] = 0
+    rlen[B // 16 : B // 8] = L
+    rlen[B // 8 : B // 8 + 8] = np.arange(1, 9)
+    pad = np.arange(L)[None, :] >= rlen[:, None]
+    seq[pad] = 0
+    qual[pad] = 0
+    return seq, qual, rlen
+
+
+def _fastq_bytes(seq: np.ndarray, qual: np.ndarray, mate: int,
+                 first: int) -> bytes:
+    n, L = seq.shape
+    names = np.array([b"@SIM:%09d %d:N:0:ACGTAC" % (first + i, mate)
+                      for i in range(n)])
+    w = names.dtype.itemsize
+    rec = np.empty((n, w + 1 + L + 3 + L + 1), np.uint8)
+    rec[:, :w] = names.view(np.uint8).reshape(n, w)
+    rec[:, w] = ord("\n")
+    rec[:, w + 1 : w + 1 + L] = seq
+    rec[:, w + 1 + L : w + 4 + L] = np.frombuffer(b"\n+\n", np.uint8)
+    rec[:, w + 4 + L : w + 4 + 2 * L] = qual
+    rec[:, -1] = ord("\n")
+    return rec.tobytes()
+
+
+def write_pairs(path1, path2, n: int, seed: int, read_len: int = 151,
+                block: int = 250_000) -> np.ndarray:
+    """Write ``n`` pairs as plain FASTQ to ``path1``/``path2`` in blocks of
+    ``block`` pairs (block k is seeded with ``seed + k``, so a prefix of the
+    stream is the same for any ``n``); returns the insert sizes."""
+    sizes = []
+    with open(path1, "wb") as f1, open(path2, "wb") as f2:
+        for k, lo in enumerate(range(0, n, block)):
+            m = min(block, n - lo)
+            s1, q1, s2, q2, isz = make_pairs(m, seed + k, read_len)
+            f1.write(_fastq_bytes(s1, q1, 1, lo))
+            f2.write(_fastq_bytes(s2, q2, 2, lo))
+            sizes.append(isz)
+    return np.concatenate(sizes) if sizes else np.zeros(0, np.int32)
