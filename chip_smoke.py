@@ -9,17 +9,29 @@ Phases, each of which stops the run with a nonzero exit on failure:
 3. the kernel against its plain PyTorch version, both on the card, output
    for output (exact: all outputs are integers), over several shapes and
    parameters, and both timed per 16384 x 151 chunk with CUDA events;
-4. the main path: 1,000,000 synthetic 2x151 bp pairs through
+4. the paired-end main path: 1,000,000 synthetic 2x151 bp pairs through
    ``fqtool_tpu_torch.main`` on cuda with ``-q -f 3 -t 2`` and every output
    stream; the kernel's launch counter must cover every chunk.  The run is
    traced with torch.profiler (device activity only), which gives the
    card's busy time against the run's wall and the kernels that fill it;
 5. the first 50,000 of those pairs once on cuda and once on the CPU (plain
-   versions): records byte-identical, reports equal under compare_json.
+   versions): records byte-identical, reports equal under compare_json;
+6. the single-end ops (polyG, polyX, adapter trimming, k-mers, duplication
+   keys) on the card against the same ops on the CPU, exact, at 65,536
+   reads of 151 bp and at widths 40 and 300; then every single-end
+   pipeline op and the whole ``se_pipeline`` timed per 65,536 x 151 chunk
+   with CUDA events;
+7. the single-end main path: 2,000,000 synthetic 151 bp reads with
+   se_qualtrim (``-q -f 3 -t 2``) and 1,000,000 with every single-end
+   stage, each traced as phase 4;
+8. the first 50,000 of those reads once on cuda and once on the CPU for
+   four argv sets: every output file byte-identical, reports equal; the
+   split run reads packs of 500, so records reach every split file.
 
 The second-to-last line is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
-``python3 chip_smoke.py`` (``--pairs``/``--subset`` shrink phases 4/5).
+``python3 chip_smoke.py`` (``--pairs``/``--subset``/``--reads`` shrink the
+main-path phases).
 """
 
 from __future__ import annotations
@@ -45,9 +57,18 @@ from torch.autograd import DeviceType  # noqa: E402
 
 from fqtool_tpu_torch.host import native, tracing  # noqa: E402
 from fqtool_tpu_torch.main import main as cli_main  # noqa: E402
+from fqtool_tpu_torch.ops import adapter as se_adapter  # noqa: E402
+from fqtool_tpu_torch.ops import common as se_common  # noqa: E402
+from fqtool_tpu_torch.ops import dup as se_dup  # noqa: E402
+from fqtool_tpu_torch.ops import filters as se_filters  # noqa: E402
 from fqtool_tpu_torch.ops import overlap, overlap_cuda  # noqa: E402
+from fqtool_tpu_torch.ops import polyx as se_polyx  # noqa: E402
+from fqtool_tpu_torch.ops import qualcut as se_qualcut  # noqa: E402
+from fqtool_tpu_torch.ops import stats as se_stats  # noqa: E402
+from fqtool_tpu_torch.pipeline import se as se_pipe  # noqa: E402
 from tests.oracle import compare_json, diff_fastq, read_fastq  # noqa: E402
-from tests.torch_pairs import make_pairs, write_pairs  # noqa: E402
+from tests.torch_pairs import kernel_params_se, make_pairs, write_pairs  # noqa: E402
+from tests.torch_reads import ADAPTER, make_reads, write_reads  # noqa: E402
 
 PE_CHUNK = 16384
 FLAGS = ["-q", "-f", "3", "-t", "2"]
@@ -248,11 +269,248 @@ def phase_subset(work: Path, r1: Path, r2: Path, subset: int) -> None:
         raise SystemExit(f"cuda and cpu reports differ: {d[:10]}")
     log("subset reports equal under compare_json")
 
+SE_CHUNK = 65536
+SE_QUALTRIM = ["-q", "-f", "3", "-t", "2"]
+SE_ALL = ["-q", "-g", "-x", "-a", "--adapter_of_read1", ADAPTER.decode(), "-d",
+          "--kmer", "--kmer_length", "6"]
+SE_SUBSETS = {
+    "se_qualtrim": SE_QUALTRIM + ["--failed_out", "failed.fq.gz"],
+    "se_polygx": ["-g", "-x"],
+    "se_adapter": ["-a", "--adapter_of_read1", ADAPTER.decode()],
+    # packs of 500 reads, so that the four split files rotate and all hold
+    # records
+    "se_umi_split": ["-q", "-d", "--kmer", "--kmer_length", "6", "-u",
+                     "--umi_location", "3", "--umi_length", "8", "-s",
+                     "--split_file_number", "4", "--max_item_in_pack", "500",
+                     "--failed_out", "failed.fq.gz"],
+}
+
+
+def _se_case(B, L, seed, zero_frac=0.0):
+    """Single-end planes at the main path's shapes: width rounded up to 8 as
+    the pack reader does, lengths mostly full, a fraction of rows at length 0,
+    and a selection mask; as (seq, qual, rlen, select) tensors on the CPU."""
+    seq, qual, _ = make_reads(B, seed, L)
+    rng = np.random.default_rng(seed + 1000)
+    rlen = np.full(B, L, np.int32)
+    short = rng.random(B) < 0.2
+    rlen[short] = rng.integers(0, L + 1, short.sum())
+    rlen[rng.random(B) < zero_frac] = 0
+    w = -(-L // 8) * 8
+    s = np.zeros((B, w), np.uint8)
+    q = np.zeros((B, w), np.uint8)
+    s[:, :L] = seq
+    q[:, :L] = qual
+    pad = np.arange(w)[None, :] >= rlen[:, None]
+    s[pad] = 0
+    q[pad] = 0
+    return tuple(torch.as_tensor(a) for a in (s, q, rlen, rng.random(B) < 0.8))
+
+
+# the single-end ops held cuda against cpu: name -> f(seq, qual, rlen, select)
+SE_OPS = {
+    "trim_polyg": lambda s, q, r, m: se_polyx.trim_polyg(s, r, 10, 5, 8),
+    "trim_polyx[default ATCGN]":
+        lambda s, q, r, m: se_polyx.trim_polyx(s, r, "ATCGN", 10, 5, 8),
+    "trim_polyx[ACGTN]": lambda s, q, r, m: se_polyx.trim_polyx(s, r, "ACGTN", 10, 5, 8),
+    "trim_polyx[G]": lambda s, q, r, m: se_polyx.trim_polyx(s, r, "G", 10, 5, 8),
+    "trim_by_sequence[33]": lambda s, q, r, m: se_adapter.trim_by_sequence(s, r, ADAPTER),
+    "trim_by_sequence[12]":
+        lambda s, q, r, m: se_adapter.trim_by_sequence(s, r, ADAPTER[:12]),
+    "trim_by_sequence[7]":
+        lambda s, q, r, m: se_adapter.trim_by_sequence(s, r, ADAPTER[:7]),
+    "kmer_counts[6]": lambda s, q, r, m: se_stats.kmer_counts(s, r, 6, m),
+    "dup_keys_se[12]": lambda s, q, r, m: se_dup.dup_keys_se(s, r, 12),
+    "dup_keys_se[17]": lambda s, q, r, m: se_dup.dup_keys_se(s, r, 17),
+}
+
+
+def _outputs(x) -> list:
+    return list(x) if isinstance(x, tuple) else [x]
+
+
+def phase_se_ops(dev: str = "cuda") -> None:
+    cases = [(SE_CHUNK, 151, 0.0), (SE_CHUNK, 151, 0.3), (SE_CHUNK // 4, 40, 0.0),
+             (SE_CHUNK // 8, 300, 0.0)]
+    for k, (B, L, zf) in enumerate(cases):
+        cpu = _se_case(B, L, seed=300 + k, zero_frac=zf)
+        gpu = tuple(t.to(dev) for t in cpu)
+        for name, fn in SE_OPS.items():
+            got, ref = _outputs(fn(*gpu)), _outputs(fn(*cpu))
+            torch.cuda.synchronize()
+            for a, b in zip(got, ref):
+                if (a is None) != (b is None):
+                    raise SystemExit(f"{name}: an output is None on one device only")
+                if a is None:
+                    continue
+                a, b = a.cpu().numpy(), b.numpy()
+                err = (int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+                       if a.size and a.shape == b.shape else 0)
+                if a.dtype != b.dtype or a.shape != b.shape or err:
+                    raise SystemExit(
+                        f"{name} B={B} L={L} zero_rows={zf}: cuda {a.dtype}{a.shape} "
+                        f"vs cpu {b.dtype}{b.shape}, max |err| {err}")
+        log(f"single-end ops cuda vs cpu B={B} L={L} zero_rows={zf}: "
+            f"{len(SE_OPS)} ops equal (tolerance 0: integer outputs)")
+
+    s, q, r, m = (t.to(dev) for t in _se_case(SE_CHUNK, 151, seed=400))
+    p = kernel_params_se(*SE_QUALTRIM)
+    p_all = kernel_params_se(*SE_ALL)
+    tc = se_qualcut.trim_and_cut(s, q, r, p.front, p.tail, p)
+    zeros = torch.zeros_like(r)
+    umi8 = torch.full_like(r, 8)
+    timed = dict(SE_OPS)
+    timed.update({
+        # the UMI shift of se_pipeline (one gather per plane), beside the
+        # static slice that a uniform offset would allow
+        "align[UMI 8, per row]": lambda s, q, r, m: se_common.align((s, q), umi8),
+        "align_static[UMI 8]": lambda s, q, r, m: (
+            se_common.align_static(s, 8), se_common.align_static(q, 8)),
+        "stat_batch": lambda s, q, r, m: se_stats.stat_batch(s, q, r, m),
+        "trim_and_cut[-f 3 -t 2]":
+            lambda s, q, r, m: se_qualcut.trim_and_cut(s, q, r, p.front, p.tail, p),
+        "pass_filter[-q]":
+            lambda s, q, r, m: se_filters.pass_filter(s, q, tc.rlen, tc.dropped, p),
+        "se_pipeline[se_qualtrim]": lambda s, q, r, m: se_pipe.se_pipeline(
+            s, q, r, zeros, m, p=p),
+        "se_pipeline[all stages]": lambda s, q, r, m: se_pipe.se_pipeline(
+            s, q, r, zeros, m, p=p_all, adapter_r1=ADAPTER, with_kmer=True),
+    })
+    ms = {name: round(_time_ms(lambda: fn(s, q, r, m)), 4)
+          for name, fn in timed.items()}
+    log("single-end op ms per 65536 x 151 chunk (CUDA events, 20 launches): "
+        + json.dumps(ms))
+    log("single-end op device ms and device activities (kernels, copies) per "
+        "65536 x 151 chunk (torch.profiler, one call): "
+        + json.dumps({name: _device_ms(lambda: fn(s, q, r, m))
+                      for name, fn in timed.items()}))
+
+
+def _device_ms(fn) -> list:
+    """[busy ms, activity count] of one traced call of ``fn`` on the card: an
+    op whose CUDA-event time is far above its busy time waits on its host
+    launches."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_ms, _ = _device_busy(prof)
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return [round(busy_ms, 4), n]
+
+
+def _run_se_cli(work: Path, fq: Path, flags, device: str, tag: str) -> Path:
+    """Run the port's CLI in ``work/tag`` (split files land there too);
+    returns that directory."""
+    d = work / tag
+    d.mkdir()
+    argv = ["-i", str(fq), "-o", "out.fq.gz", *flags, "-J", "report.json",
+            "-H", "report.html"]
+    os.environ["FQTOOL_TPU_TORCH_DEVICE"] = device
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        rc = cli_main(argv)
+    finally:
+        os.chdir(cwd)
+    if rc != 0:
+        raise SystemExit(f"fqtool_tpu_torch.main {' '.join(flags)} returned {rc} "
+                         f"on {device}")
+    return d
+
+
+def _head(src: Path, dst: Path, reads: int) -> Path:
+    with open(src, "rb") as f, open(dst, "wb") as g:
+        g.writelines(itertools.islice(f, 4 * reads))
+    return dst
+
+
+def phase_se_main(work: Path, reads: int) -> Path:
+    fq = work / "se.fq"
+    t0 = time.perf_counter()
+    write_reads(fq, reads, seed=2025)
+    log(f"generated {reads} single-end reads of 151 bp in "
+        f"{time.perf_counter() - t0:.3f} s")
+    half = _head(fq, work / "se_half.fq", reads // 2)
+    for tag, src, n, flags in (
+            ("se_qualtrim", fq, reads, SE_QUALTRIM + ["--failed_out", "failed.fq.gz"]),
+            ("se_all", half, reads // 2, SE_ALL + ["--failed_out", "failed.fq.gz"])):
+        tracing.reset()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            d = _run_se_cli(work, src, flags, "cuda", tag)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rep = json.loads((d / "report.json").read_text())
+        log(f"{tag} main path: {n} reads in {wall:.3f} s = {n / wall:.1f} reads/s "
+            f"({' '.join(flags)})")
+        log(f"{tag} host stage split: " + json.dumps(tracing.snapshot(), sort_keys=True))
+        busy_ms, top = _device_busy(prof)
+        if busy_ms > 0:
+            log(f"{tag} on the card (torch.profiler): {busy_ms:.3f} ms busy of "
+                f"{wall * 1e3:.3f} ms wall, idle share "
+                f"{1 - busy_ms / (wall * 1e3):.4f}; top device time (ms): "
+                + json.dumps([[name, round(t, 3)] for name, t in top]))
+        else:
+            log(f"{tag} on the card: device time not measured "
+                "(torch.profiler recorded no device activity)")
+        before = rep["Summary"]["BeforeFiltering"]["TotalReads"]
+        fr = rep["FilterResult"]
+        if before != n or not 0 < fr["PassedFilterReads"] <= n:
+            raise SystemExit(f"{tag}: report counts {before} reads and filter "
+                             f"results {fr} for {n} reads")
+        need = ["Read1AfterFiltering"]
+        if tag == "se_all":
+            need += ["AdapterTrim", "PolyxTrimming", "Duplication"]
+            if not (rep["AdapterTrim"]["AdapterTrimmedReads"] > 0
+                    and rep["PolyxTrimming"]["PolyxTrimmedReads"]["G"] > 0
+                    and sum(rep["Duplication"]["Histogram"]) > 0):
+                raise SystemExit(f"{tag}: adapter, polyG or duplication section "
+                                 "counted nothing")
+        missing = [k for k in need if not rep.get(k)]
+        if missing:
+            raise SystemExit(f"{tag}: report sections missing or empty: {missing}")
+        log(f"{tag}: report counts {n} reads; filter results {json.dumps(fr)}")
+    return fq
+
+
+def phase_se_subset(work: Path, fq: Path, subset: int) -> None:
+    sub = _head(fq, work / "se_sub.fq", subset)
+    for tag, flags in SE_SUBSETS.items():
+        gpu = _run_se_cli(work, sub, flags, "cuda", f"sub_{tag}_cuda")
+        t0 = time.perf_counter()
+        cpu = _run_se_cli(work, sub, flags, "cpu", f"sub_{tag}_cpu")
+        secs = time.perf_counter() - t0
+        names = sorted(p.name for p in gpu.glob("*.fq.gz"))
+        if names != sorted(p.name for p in cpu.glob("*.fq.gz")):
+            raise SystemExit(f"{tag}: cuda and cpu wrote different files")
+        counts, filled = [], 0
+        for name in names:
+            a, b = read_fastq(gpu / name), read_fastq(cpu / name)
+            d = diff_fastq(a, b)
+            if d:
+                raise SystemExit(f"{tag} {name}: cuda and cpu records differ: {d}")
+            counts.append(f"{name} {len(a)}")
+            filled += bool(a) and name != "failed.fq.gz"
+        if "-s" in flags and filled < 2:
+            raise SystemExit(f"{tag}: records reached {filled} split file(s): the "
+                             "rotation between files went unchecked")
+        d = compare_json(json.loads((gpu / "report.json").read_text()),
+                         json.loads((cpu / "report.json").read_text()))
+        if d:
+            raise SystemExit(f"{tag}: cuda and cpu reports differ: {d[:10]}")
+        log(f"subset {tag} ({subset} reads; CPU run {secs:.3f} s): records "
+            f"identical on cuda and cpu ({', '.join(counts)}); reports equal")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--pairs", type=int, default=1_000_000)
     ap.add_argument("--subset", type=int, default=50_000)
+    ap.add_argument("--reads", type=int, default=2_000_000)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: torch sees no CUDA device\n")
@@ -266,6 +524,9 @@ def main() -> int:
     try:
         r1, r2, launches = phase_main(work, args.pairs)
         phase_subset(work, r1, r2, min(args.subset, args.pairs))
+        phase_se_ops()
+        fq = phase_se_main(work, args.reads)
+        phase_se_subset(work, fq, min(args.subset, args.reads))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     entry["launches"] = launches

@@ -15,6 +15,14 @@ Q20_CHAR = ord("5")  # reference: stats.cpp:250
 Q30_CHAR = ord("?")  # reference: stats.cpp:251
 
 
+def seq2int_codes(seq: torch.Tensor) -> torch.Tensor:
+    """int8 2-bit base codes A=0 T=1 C=2 G=3; -1 for anything else."""
+    lut = torch.full((256,), -1, dtype=torch.int8, device=seq.device)
+    for code, base in enumerate((A, T, C, G)):
+        lut[base] = code
+    return lut[seq.long()]
+
+
 def complement(seq: torch.Tensor) -> torch.Tensor:
     """Base complement (reference: seq.h:24-48): A<->T C<->G (either case),
     everything else -> N."""
@@ -71,6 +79,14 @@ def align_static(x: torch.Tensor, k: int) -> torch.Tensor:
     if k == 0:
         return x
     return torch.nn.functional.pad(x[:, k:], (0, k))
+
+
+def select_at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[b, idx[b]]``, and 0 where ``idx[b]`` lies outside the row."""
+    L = x.shape[1]
+    inside = (idx >= 0) & (idx < L)
+    got = torch.gather(x, 1, idx.clamp(0, max(L - 1, 0)).long()[:, None])[:, 0]
+    return torch.where(inside, got, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def prefix_sums(x: torch.Tensor) -> torch.Tensor:

@@ -24,7 +24,8 @@ import torch.nn.functional as F
 
 from fqtool_tpu.config.options import KernelParams
 
-from .common import N, first_true, last_true, positions, prefix_sums
+from .common import (N, align, align_static, first_true, last_true, positions,
+                     prefix_sums)
 
 
 class TrimCutResult(NamedTuple):
@@ -120,3 +121,14 @@ def trim_and_cut(seq: torch.Tensor, qual: torch.Tensor, rlen: torch.Tensor,
 
     dropped = dropped | (cur_rlen <= 0) | (front >= l - 1)  # filter.cpp:183-185
     return TrimCutResult(front, torch.clamp(cur_rlen, min=0), dropped)
+
+
+def front_align(seq: torch.Tensor, qual: torch.Tensor, tc: TrimCutResult,
+                p: KernelParams):
+    """Left-align the planes at the kept span's start: a per-row shift after
+    a quality front cut, a static slice for a force trim alone."""
+    if p.cut_front:
+        return align((seq, qual), tc.front)
+    if p.front > 0:
+        return align_static(seq, p.front), align_static(qual, p.front)
+    return seq, qual

@@ -1,6 +1,6 @@
-"""Per-cycle statistics.
+"""Per-cycle statistics and k-mer counts.
 
-Counterpart of ``fqtool_tpu/ops/stats.py::stat_batch`` (reference:
+Counterpart of ``fqtool_tpu/ops/stats.py`` ``stat_batch`` and ``kmer_counts`` (reference:
 src/stats.cpp:237-295): per-cycle Q20/Q30/content/quality histograms binned
 by ``base & 0x07``.  Q20/Q30 use strict ``>`` against '5'/'?'
 (stats.cpp:250-259).  One int64 scatter-add over the ``(base & 7, cycle)``
@@ -13,7 +13,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .common import Q20_CHAR, Q30_CHAR, valid_mask
+from .common import Q20_CHAR, Q30_CHAR, positions, seq2int_codes, valid_mask
 
 
 class BatchStats(NamedTuple):
@@ -50,7 +50,7 @@ def stat_batch(seq: torch.Tensor, qual: torch.Tensor, rlen: torch.Tensor,
     cq = hist.reshape(8, L, 4).to(torch.int32)
 
     if select is None:
-        nreads = torch.tensor(B, dtype=torch.int32, device=seq.device)
+        nreads = torch.full((), B, dtype=torch.int32, device=seq.device)
         lsum = rlen.sum()
     else:
         nreads = select.sum().to(torch.int32)
@@ -66,3 +66,30 @@ def stat_batch(seq: torch.Tensor, qual: torch.Tensor, rlen: torch.Tensor,
         reads=nreads,
         length_sum=lsum.to(torch.int32),
     )
+
+
+def kmer_counts(seq: torch.Tensor, rlen: torch.Tensor, kmer_len: int,
+                select: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int32 [4**k] histogram of the k-mer windows (stats.cpp:266-274): a
+    window ending at position i (k-1 <= i < rlen) counts iff all k bases are
+    A/T/C/G; the key packs the bases 2 bits each, first base highest.  One
+    ``index_add_`` of the windows' validity over their keys.  The histogram
+    takes 4**k int32 on the device (k = 16: 16 GiB)."""
+    B, L = seq.shape
+    k = kmer_len
+    dev = seq.device
+    hist = torch.zeros((4 ** max(k, 1),), dtype=torch.int32, device=dev)
+    if k <= 0 or L < k:
+        return hist
+    codes = seq2int_codes(seq)
+    nwin = L - k + 1
+    key = torch.zeros((B, nwin), dtype=torch.int64, device=dev)
+    ok = positions(nwin, dev) + (k - 1) < rlen[:, None]
+    if select is not None:
+        ok &= select[:, None]
+    for j in range(k):
+        c = codes[:, j : j + nwin]
+        key = key * 4 + c.clamp(min=0)
+        ok &= c >= 0
+    hist.index_add_(0, key.reshape(-1), ok.reshape(-1).to(torch.int32))
+    return hist

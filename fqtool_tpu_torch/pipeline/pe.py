@@ -26,7 +26,7 @@ from ..ops import filters as ops_filters
 from ..ops import overlap_select as ops_overlap
 from ..ops import qualcut as ops_qualcut
 from ..ops import stats as ops_stats
-from ..ops.common import align, align_static
+from .device import PipelineResult, to_device
 
 
 def check_ported(p: KernelParams, p2: KernelParams) -> None:
@@ -41,14 +41,6 @@ def check_ported(p: KernelParams, p2: KernelParams) -> None:
     for name, on in stages:
         if on:
             raise NotImplementedError(f"{name} is not ported to fqtool_tpu_torch")
-
-
-def _front_align(seq, qual, tc, p: KernelParams):
-    if p.cut_front:
-        return align((seq, qual), tc.front)
-    if p.front > 0:  # static force trim: slice + pad
-        return align_static(seq, p.front), align_static(qual, p.front)
-    return seq, qual
 
 
 def pe_pipeline(seq1, qual1, lens1, seq2, qual2, lens2, keep, real,
@@ -69,8 +61,8 @@ def pe_pipeline(seq1, qual1, lens1, seq2, qual2, lens2, keep, real,
     # 4. trimAndCut per side (peprocessor.cpp:292-293)
     tc1 = ops_qualcut.trim_and_cut(seq1, qual1, lens1, p.front, p.tail, p)
     tc2 = ops_qualcut.trim_and_cut(seq2, qual2, lens2, p2.front, p2.tail, p2)
-    seq1, qual1 = _front_align(seq1, qual1, tc1, p)
-    seq2, qual2 = _front_align(seq2, qual2, tc2, p2)
+    seq1, qual1 = ops_qualcut.front_align(seq1, qual1, tc1, p)
+    seq2, qual2 = ops_qualcut.front_align(seq2, qual2, tc2, p2)
     rlen1, rlen2 = tc1.rlen, tc2.rlen
     drop1, drop2 = tc1.dropped, tc2.dropped
     both = ~drop1 & ~drop2
@@ -112,54 +104,6 @@ def pe_pipeline(seq1, qual1, lens1, seq2, qual2, lens2, keep, real,
     out["rlen2"] = rlen2.to(span_t)
     out["dropped1"], out["dropped2"] = drop1, drop2
     return out
-
-
-def to_device(arrays: Sequence[np.ndarray], device) -> tuple:
-    """Numpy planes of a ReadPack slice -> tensors on ``device``: uint8 and
-    bool planes keep their dtype, integer vectors become int32.  Slices may be
-    read-only views, so each is copied into a contiguous array first."""
-    out = []
-    for a in arrays:
-        a = np.ascontiguousarray(a)
-        if a.dtype not in (np.uint8, np.bool_):
-            a = a.astype(np.int32)
-        out.append(torch.as_tensor(a).to(device, non_blocking=True))
-    return tuple(out)
-
-
-def _to_numpy(x):
-    if isinstance(x, ops_stats.BatchStats):
-        return ops_stats.BatchStats(*(_to_numpy(v) for v in x))
-    return x.cpu().numpy()
-
-
-def outputs_to_numpy(out: Dict[str, object]) -> Dict[str, object]:
-    """The pipeline's output dict with every tensor as a numpy array (stats
-    as a ``BatchStats`` of numpy arrays): the JAX pipeline's host contract."""
-    return {k: _to_numpy(v) for k, v in out.items()}
-
-
-class PipelineResult:
-    """Handle over one dispatched chunk.  ``get()`` may run on another thread
-    than the dispatch (whose current stream is then a different one), so it
-    waits on an event recorded on the launch stream before copying out."""
-
-    __slots__ = ("_out", "_stream", "_event")
-
-    def __init__(self, out: Dict[str, object], device: torch.device):
-        self._out = out
-        self._stream = self._event = None
-        if device.type == "cuda":
-            self._stream = torch.cuda.current_stream(device)
-            self._event = torch.cuda.Event()
-            self._event.record(self._stream)
-
-    def get(self) -> Dict[str, object]:
-        if self._event is None:
-            return outputs_to_numpy(self._out)
-        self._event.synchronize()
-        with torch.cuda.stream(self._stream):
-            return outputs_to_numpy(self._out)
 
 
 def pe_pipeline_call(arrays: Sequence[np.ndarray], device, p: KernelParams,

@@ -1,24 +1,50 @@
-"""Host-side runtime helpers shared by the runners.
+"""Host-side processing runtime: the single-end runner and the helpers both
+runners share.
 
 Copied from ``fqtool_tpu/pipeline/runner.py`` (which imports JAX at module
-level): the failed-stream tag catalog, the chunk-size buckets, the
-pipelined drain of dispatched chunks, the index filter and the log line.
+level): the failed-stream tag catalog, the chunk-size buckets, the pack and
+write-unit framing, the pipelined drain of dispatched chunks, the index
+filter, the split-output writer and the log line, and a single-host
+``SingleEndRunner`` whose fold, ORA sampling, adapter/polyG/polyX
+accounting, failed stream and reports are unchanged.  Its dispatch uploads
+each chunk and runs the port's ``se_pipeline`` on one torch device, with no
+padded rows.  Output record order is always input order (the reference run
+with one worker thread).
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
+from typing import List, Optional
 
 import numpy as np
+import torch
 
+from fqtool_tpu.config.options import Options
+from fqtool_tpu.host.duplicate import DuplicateTable
+from fqtool_tpu.host.stats import StatsAccumulator
+from fqtool_tpu.host.tracing import stage
+from fqtool_tpu.host.umi import process_umi
+from fqtool_tpu.io.fastq import (AsyncWriter, OutputWriter, ReadPack,
+                                 format_selected, prefetch_iter)
+
+from ..host import report_json
+from ..host.filterresult import FilterResultAccumulator
 from ..ops.filters import FAILED_TYPES
+from .se import se_pipeline_call
 
 # tag catalog for failed-stream suffixes: one buffer + per-code offsets
 _TAG_BUF = b"".join(t.encode() for t in FAILED_TYPES)
 _TAG_LEN = np.array([len(t) for t in FAILED_TYPES], np.int32)
 _TAG_OFF = np.zeros(len(FAILED_TYPES), np.int64)
 np.cumsum(_TAG_LEN[:-1], out=_TAG_OFF[1:])
+
+
+def failed_tags(results: np.ndarray):
+    """(buf, off, len) tag triple for format_selected from result codes."""
+    return _TAG_BUF, _TAG_OFF[results], _TAG_LEN[results]
 
 
 def drain_pipelined(pending):
@@ -48,7 +74,39 @@ def drain_pipelined(pending):
 # Fixed device batch sizes: a pack's chunks all use one of these row counts
 # (fqtool_tpu sizes its compiled programs by them; kept so that the chunk
 # boundaries, and with them the output framing, are the same here)
+SE_CHUNK = 65536
 _BUCKETS = (256, 2048, 8192, 16384, 32768)
+# device chunks per single-end pack when split output is off: the device
+# computes chunk k+1 while the host fetches and folds chunk k
+SE_PACK_CHUNKS = 2
+# Write unit: the input-record quantum at which output streams are
+# deflate-framed (each unit an independent run of deflate blocks), as in
+# fqtool_tpu, so the gzip bytes agree with its runs
+WRITE_UNIT = 16384
+
+
+def main_pack_reads(opt) -> int:
+    """Main-pass pack framing for SE runs: whole device chunks when split is
+    off (pack size only shows in the output through split-file rotation).
+    Shared with main.py's head-cache activation so the pre-pass reader and
+    the main pass agree on framing (io/headcache.py)."""
+    return (opt.buf_size.max_reads_in_pack if opt.split.enabled
+            else SE_CHUNK * SE_PACK_CHUNKS)
+
+
+def main_write_unit(opt) -> int:
+    """Records per write unit for SE runs: WRITE_UNIT when the pack framing
+    is unit-aligned, else the whole pack."""
+    pack_reads = main_pack_reads(opt)
+    return WRITE_UNIT if pack_reads % WRITE_UNIT == 0 else pack_reads
+
+
+def unit_bounds_for(count: int, unit: int) -> List[int]:
+    """Row offsets [0, unit, 2*unit, ..., count] splitting a pack whose first
+    row sits on a unit boundary."""
+    bounds = list(range(0, count, unit))
+    bounds.append(count)
+    return bounds
 
 
 def chunk_rows(pack_total: int, cap: int) -> int:
@@ -74,3 +132,337 @@ def index_filter_matches(opt, pack, blacklist) -> np.ndarray:
     mat = name_matrix(nb, no, nl)
     s, t = first_index_batch(mat, nl)
     return index_match_batch(blacklist, mat, s, t, opt.index_filter.threshold)
+
+
+def split_file_name(opt: Options, base: str, k: int) -> str:
+    """Numbered split-file path ``<k+1 zero-padded>.<basename>``
+    (reference: src/threadconfig.cpp:88-105)."""
+    num = str(k + 1)
+    if opt.split.digits > 0:
+        num = num.zfill(opt.split.digits)
+    d = os.path.dirname(base)
+    return os.path.join(d, num + "." + os.path.basename(base)) if d \
+        else num + "." + os.path.basename(base)
+
+
+class SplitWriter:
+    """Single-end split-output writer emulating ThreadConfig's rotation for a
+    single worker (reference: src/threadconfig.cpp:88-137).  Matches the
+    reference byte-for-byte when it runs with one worker thread."""
+
+    def __init__(self, opt: Options):
+        self.opt = opt
+        self.working_split = 0
+        self.current_reads = 0
+        self.w1: Optional[OutputWriter] = None
+        self._open()
+
+    def _name(self, base: str) -> str:
+        return split_file_name(self.opt, base, self.working_split)
+
+    def _open(self) -> None:
+        if not self.opt.out1:
+            return
+        if self.w1:
+            self.w1.close()
+        self.w1 = OutputWriter(self._name(self.opt.out1), self.opt.compression)
+
+    def write(self, data: bytes) -> None:
+        if self.w1:
+            self.w1.write(data)
+
+    def mark_processed(self, n: int) -> None:
+        """reference: src/threadconfig.cpp:107-127.
+
+        Our runner is always a single deterministic worker, so `-w` is a
+        performance hint only: split rotation always follows the reference's
+        one-worker behavior (sequential file numbering; with -s, excess reads
+        accumulate in the last file since number % 1 == 0 never stops the
+        worker).
+        """
+        self.current_reads += n
+        opt = self.opt
+        if self.current_reads >= opt.split.size:
+            if opt.split.by_file_lines or self.working_split + 1 < opt.split.number:
+                self.working_split += 1
+                self._open()
+                self.current_reads = 0
+
+    def close(self) -> None:
+        # write empty files to honor --split_file_number
+        # (threadconfig.cpp:131-137)
+        if self.opt.split.by_file_number:
+            while self.working_split + 1 < self.opt.split.number:
+                self.working_split += 1
+                self._open()
+                self.current_reads = 0
+        if self.w1:
+            self.w1.close()
+
+
+class SingleEndRunner:
+    def __init__(self, opt: Options, device="cuda"):
+        self.opt = opt
+        self.device = torch.device(device)
+        self.params = opt.kernel_params(is_r2=False)
+        self.pre_stats = self._make_stats()
+        self.post_stats = self._make_stats()
+        self.filter_result = FilterResultAccumulator(opt, paired=False)
+        self.dup = (DuplicateTable(opt.duplicate.keylen, opt.duplicate.hist_size)
+                    if opt.duplicate.enabled else None)
+        self._pre_counter = 0
+        self._post_counter = 0
+        self._rows = 0  # device batch size, locked at the first pack
+        self.adapter_r1 = self._effective_adapter()
+
+    def _make_stats(self) -> StatsAccumulator:
+        opt = self.opt
+        return StatsAccumulator(
+            evaluated_seq_len=opt.est.seq_len1,
+            kmer_len=opt.kmer.kmer_len if opt.kmer.enabled else 0,
+            over_rep_sampling=opt.over_rep.sampling if opt.over_rep.enabled else 0,
+            over_rep_seqs=opt.over_rep.over_rep_seq_count_r1,
+        )
+
+    def _effective_adapter(self) -> bytes:
+        # SE trimming only uses an explicitly provided adapter
+        # (seprocessor.cpp:321-323)
+        if self.opt.adapter.enable_trimming and self.opt.adapter.adapter_seq_r1_provided:
+            return self.opt.adapter.input_adapter_seq_r1.encode()
+        return b""
+
+    # ------------------------------------------------------------------
+    def run(self) -> None:
+        opt = self.opt
+        split = SplitWriter(opt) if opt.split.enabled else None
+        out_writer = (AsyncWriter(opt.out1, opt.compression)
+                      if opt.out1 and not opt.split.enabled else None)
+        failed_writer = (AsyncWriter(opt.failed_out, opt.compression)
+                         if opt.failed_out else None)
+
+        pack_reads = main_pack_reads(opt)
+        unit = main_write_unit(opt)
+        total = 0
+
+        def emit(pack):
+            nonlocal total
+            if split is not None:
+                # split rotation consumes whole packs
+                outstr, failedstr, read_passed = self.complete_pack(pack)
+                total += pack[0].count
+                split.write(outstr)
+                split.mark_processed(read_passed if opt.split.by_file_lines
+                                     else pack[0].count)
+                if failed_writer is not None:
+                    failed_writer.write(failedstr)
+                return
+            bounds = unit_bounds_for(pack[0].count, unit)
+            outstrs, failedstrs, _ = self.complete_pack(pack, bounds)
+            total += pack[0].count
+            if out_writer is not None:
+                for s in outstrs:
+                    out_writer.write(s)
+            if failed_writer is not None:
+                for s in failedstrs:
+                    failed_writer.write(s)
+
+        from fqtool_tpu.io.headcache import iter_packs_cached
+        it = prefetch_iter(iter_packs_cached(opt.in1, pack_reads, opt.phred64))
+        while True:
+            with stage("input_wait"):
+                pack = next(it, None)
+            if pack is None:
+                break
+            emit(self.submit_pack(pack))
+        loginfo(f"processed {total} reads")
+
+        with stage("writer_close"):
+            if split is not None:
+                split.close()
+            if out_writer is not None:
+                out_writer.close()
+            if failed_writer is not None:
+                failed_writer.close()
+        with stage("reports"):
+            self.write_reports()
+
+    # ------------------------------------------------------------------
+    def submit_pack(self, pack: ReadPack):
+        """Host prep (index filter, UMI) + dispatch of every device chunk;
+        returns a handle for :meth:`complete_pack`."""
+        opt = self.opt
+        B = pack.count
+        keep = np.ones(B, bool)
+        if opt.index_filter.enabled:
+            keep = ~index_filter_matches(opt, pack, opt.index_filter.blacklist1)
+        start0, _ = process_umi(opt, pack)
+
+        with stage("dispatch"):
+            return self._dispatch(pack, start0, keep)
+
+    def _dispatch(self, pack, start0, keep):
+        opt = self.opt
+        B = pack.count
+        # the chunk size of fqtool_tpu's runner, locked at the first pack, so
+        # that chunks agree with its runs
+        if not self._rows:
+            self._rows = chunk_rows(B, SE_CHUNK)
+        rows = self._rows
+        pending = []  # one (handle,) per chunk, for drain_pipelined
+        lo = 0
+        while lo < B:
+            hi = min(lo + rows, B)
+            call = se_pipeline_call(
+                (pack.seq[lo:hi], pack.qual[lo:hi], pack.lens[lo:hi],
+                 start0[lo:hi], keep[lo:hi]),
+                self.device, p=self.params, adapter_r1=self.adapter_r1,
+                use_start0=bool(opt.umi.enabled),
+                with_kmer=bool(opt.kmer.enabled))
+            pending.append((call,))
+            lo = hi
+        return pack, start0, keep, pending
+
+    def _drain_chunks(self, pending) -> dict:
+        """Collect dispatched chunk outputs; fold stats/dup, concatenate the
+        per-read arrays."""
+        merged: dict = {}
+        drain = drain_pipelined(pending)
+        while True:
+            with stage("device_wait"):
+                item = next(drain, None)
+            if item is None:
+                break
+            (out,) = item
+            self.pre_stats.add_batch(out.pop("pre"))
+            self.post_stats.add_batch(out.pop("post"))
+            if "pre_kmer" in out:
+                self.pre_stats.add_kmer(out.pop("pre_kmer"))
+            if "post_kmer" in out:
+                self.post_stats.add_kmer(out.pop("post_kmer"))
+            if self.dup is not None:
+                d = out.pop("dup")
+                self.dup.add_batch(d.key, d.kmer_hi, d.kmer_lo, d.gc, d.valid,
+                                   key_hi=d.key_hi)
+            for k, v in out.items():
+                merged.setdefault(k, []).append(v)
+        return {k: (np.concatenate(v) if len(v) > 1 else v[0])
+                for k, v in merged.items()}
+
+    def complete_pack(self, submitted, unit_bounds: Optional[List[int]] = None):
+        """Drain a submitted pack and build its output strings.
+
+        ``unit_bounds=None``: outstr/failedstr are single byte strings (the
+        whole pack).  With bounds (row offsets, see :func:`unit_bounds_for`)
+        they are per-write-unit LISTS -- each unit's bytes are written as an
+        independent deflate framing (see WRITE_UNIT)."""
+        pack, start0, keep, pending = submitted
+        out = self._drain_chunks(pending)
+        with stage("fold"):
+            return self._fold(pack, start0, keep, out, unit_bounds)
+
+    def _fold(self, pack, start0, keep, out, unit_bounds):
+        """Report accumulators, ORA sampling and the output records of one
+        drained pack."""
+        opt = self.opt
+        B = pack.count
+
+        result = np.asarray(out["result"])
+        passed = np.asarray(out["passed"])
+        front = np.asarray(out["front"])
+        rlen = np.asarray(out["rlen"])
+        dropped = np.asarray(out["dropped"])
+
+        # filter-fate counters: index-filtered reads never count
+        # (seprocessor.cpp:304-307)
+        self.filter_result.add_filter_results(result[keep], n_each=1)
+
+        # polyG / polyX trim events ------------------------------------
+        if "polyg_trimmed" in out:
+            m = np.asarray(out["polyg_trimmed"]) & keep
+            self.filter_result.add_polyx_trimmed(
+                np.full(B, 3), np.asarray(out["polyg_trim_len"]), m)
+        if "polyx_trimmed" in out:
+            m = np.asarray(out["polyx_trimmed"]) & keep
+            self.filter_result.add_polyx_trimmed(
+                np.asarray(out["polyx_base"]), np.asarray(out["polyx_trim_len"]), m)
+
+        # adapter trim events (bulk np.unique counting, host/accounting.py)
+        if "adapter_found" in out:
+            from fqtool_tpu.host.accounting import span_counts, suffix_counts
+            found = np.asarray(out["adapter_found"]) & keep
+            pos = np.asarray(out["adapter_pos"]).astype(np.int64)
+            before = np.asarray(out["len_after_polyg"]).astype(np.int64)
+            idx = np.flatnonzero(found)
+            p = pos[idx]
+            neg, posi = idx[p < 0], idx[p >= 0]
+            counts = suffix_counts(self.adapter_r1, -pos[neg])
+            counts += span_counts(pack.seq, posi, front[posi] + pos[posi],
+                                  before[posi] - pos[posi])
+            self.filter_result.add_adapter_trimmed_bulk(counts, is_r2=False)
+
+        # ORA sampling: every sampling-th read in stream order
+        # (stats.cpp:246-248); only the selected rows touch Python
+        if opt.over_rep.enabled:
+            sampling = opt.over_rep.sampling
+            for i in range(-self._pre_counter % sampling, B, sampling):
+                self.pre_stats.add_over_rep_read(
+                    pack.seq[i, : pack.lens[i]].tobytes())
+            self._pre_counter += B
+
+        # output strings ------------------------------------------------
+        select_pass = passed & keep
+        read_passed = int(select_pass.sum())
+
+        def per_unit(select, *fmt_args, **fmt_kw):
+            if unit_bounds is None:
+                return format_selected(pack, select, *fmt_args, **fmt_kw)
+            units = []
+            for lo, hi in zip(unit_bounds, unit_bounds[1:]):
+                m = np.zeros_like(select)
+                m[lo:hi] = select[lo:hi]
+                units.append(format_selected(pack, m, *fmt_args, **fmt_kw))
+            return units
+
+        outstr = per_unit(select_pass, front, rlen)
+
+        if opt.over_rep.enabled:
+            sampling = opt.over_rep.sampling
+            passing = np.flatnonzero(select_pass)
+            for k in range(-self._post_counter % sampling, len(passing),
+                           sampling):
+                i = passing[k]
+                s, n = int(front[i]), int(rlen[i])
+                self.post_stats.add_over_rep_read(pack.seq[i, s : s + n].tobytes())
+            self._post_counter += len(passing)
+
+        failedstr = b"" if unit_bounds is None else \
+            [b""] * (len(unit_bounds) - 1)
+        if opt.failed_out:
+            # the reference trims reads IN PLACE (trimAndCut returns the same
+            # object, filter.cpp:186-188), so the failed stream carries the
+            # fully trimmed read -- except for dropped reads (trimAndCut
+            # returned NULL before mutating), which stay at their post-UMI
+            # original content (seprocessor.cpp:346-348)
+            select_fail = keep & ~passed
+            f_start = np.where(dropped, start0, front).astype(np.int32)
+            f_len = np.where(dropped, np.asarray(pack.lens) - start0,
+                             rlen).astype(np.int32)
+            failedstr = per_unit(select_fail, f_start, f_len,
+                                 tags=failed_tags(result))
+        return outstr, failedstr, read_passed
+
+    # ------------------------------------------------------------------
+    def write_reports(self) -> None:
+        opt = self.opt
+        dup_hist = dup_gc = None
+        dup_rate = 0.0
+        if self.dup is not None:
+            dup_hist, dup_gc, dup_rate = self.dup.stat_all()
+        report = report_json.build_report(
+            opt, self.filter_result, self.pre_stats, self.post_stats,
+            dup_hist=dup_hist, dup_mean_gc=dup_gc, dup_rate=dup_rate)
+        report_json.write_report(opt.json_file, report)
+        from ..host import report_html
+        report_html.write_report(opt, self.filter_result, self.pre_stats,
+                                 self.post_stats, None, None,
+                                 dup_hist, dup_gc, dup_rate, None, 0)

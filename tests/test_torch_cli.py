@@ -1,14 +1,16 @@
 """``python -m fqtool_tpu_torch.main`` against ``python -m fqtool_tpu.main``.
 
-Both CLIs run in-process on the same paired inputs with the same argv; every
+Both CLIs run in-process on the same inputs with the same argv; every
 output stream must hold the same records and the JSON reports must agree
 under ``compare_json``.  The port runs on the CPU here
-(``FQTOOL_TPU_TORCH_DEVICE=cpu``); the flags of stages it does not run yet
-exit with 255, and asking for CUDA where there is none is an error.
+(``FQTOOL_TPU_TORCH_DEVICE=cpu``); on paired-end input the flags of stages
+it does not run yet exit with 255, and asking for CUDA where there is none
+is an error.  ``test_torch_se_cli.py`` covers the single-end options.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import subprocess
@@ -20,6 +22,7 @@ import pytest
 from .oracle import compare_json, diff_fastq, read_fastq
 from .test_golden_random import gen_fastq
 from .torch_pairs import write_pairs
+from .torch_reads import ADAPTER, write_reads
 
 REPO = Path(__file__).resolve().parent.parent
 OUTS = ("o1.fq.gz", "o2.fq.gz", "up1.fq.gz", "up2.fq.gz", "failed.fq.gz")
@@ -41,14 +44,21 @@ def _run(main, argv, workdir: Path) -> int:
         os.chdir(cwd)
 
 
-def _compare(tmp_path: Path, argv, monkeypatch):
+def _compare(tmp_path: Path, argv, monkeypatch, stdin: Path = None):
+    """Run both CLIs (``stdin`` feeds /dev/stdin) and compare every
+    ``*.fq.gz`` output and the JSON reports; returns (report, output names,
+    record count)."""
     from fqtool_tpu.main import main as jax_main
     from fqtool_tpu_torch.main import main as torch_main
     monkeypatch.setenv("FQTOOL_TPU_TORCH_DEVICE", "cpu")
-    assert _run(jax_main, argv, tmp_path / "jax") == 0
-    assert _run(torch_main, argv, tmp_path / "torch") == 0
+    for name, main in (("jax", jax_main), ("torch", torch_main)):
+        with open(stdin or os.devnull, "rb") as fh:
+            monkeypatch.setattr(sys, "stdin", io.TextIOWrapper(fh))
+            assert _run(main, argv, tmp_path / name) == 0, name
+    outputs = sorted(p.name for p in (tmp_path / "jax").glob("*.fq.gz"))
+    assert outputs == sorted(p.name for p in (tmp_path / "torch").glob("*.fq.gz"))
     n = 0
-    for name in OUTS:
+    for name in outputs:
         ours = read_fastq(tmp_path / "torch" / name)
         d = diff_fastq(ours, read_fastq(tmp_path / "jax" / name))
         assert not d, f"{name}: " + "\n".join(d)
@@ -59,13 +69,14 @@ def _compare(tmp_path: Path, argv, monkeypatch):
         ref = json.load(f)
     diffs = compare_json(ours, ref)
     assert not diffs, "\n".join(diffs[:40])
-    return ours, n
+    return ours, outputs, n
 
 
 def test_cli_planted_overlaps(tmp_path, monkeypatch):
     write_pairs(tmp_path / "r1.fq", tmp_path / "r2.fq", 3000, seed=11)
-    rep, n = _compare(tmp_path, _argv(tmp_path / "r1.fq", tmp_path / "r2.fq",
-                                      "-q", "-f", "3", "-t", "2"), monkeypatch)
+    rep, outputs, n = _compare(tmp_path, _argv(tmp_path / "r1.fq", tmp_path / "r2.fq",
+                                               "-q", "-f", "3", "-t", "2"), monkeypatch)
+    assert outputs == sorted(OUTS)
     assert rep["InsertSize"]["Unknown"] < 3000 and n > 5000
 
 
@@ -104,16 +115,33 @@ def test_refused_flag_exits_255(tmp_path, flags, named, capsys, monkeypatch):
     assert not (tmp_path / "o1.fq.gz").exists()
 
 
-def test_single_end_and_multihost_refused(tmp_path, capsys, monkeypatch):
+def test_single_end_runs(tmp_path, monkeypatch):
+    write_reads(tmp_path / "r.fq", 2000, seed=2)
+    rep, _, _ = _compare(tmp_path, ["-i", str(tmp_path / "r.fq"), "-o", "o1.fq.gz",
+                                 "-q", "-g", "-a", "--adapter_of_read1",
+                                 ADAPTER.decode(), "--failed_out", "failed.fq.gz"],
+                      monkeypatch)
+    assert rep["Summary"]["BeforeFiltering"]["TotalReads"] == 2000
+    assert rep["AdapterTrim"]["AdapterTrimmedReads"] > 0
+
+
+def test_multihost_refused(tmp_path, capsys, monkeypatch):
     from fqtool_tpu_torch.main import main
     monkeypatch.setenv("FQTOOL_TPU_TORCH_DEVICE", "cpu")
     write_pairs(tmp_path / "r1.fq", tmp_path / "r2.fq", 10, seed=1)
-    assert _run(main, ["-i", str(tmp_path / "r1.fq"), "-o", "o.fq"], tmp_path) == 255
-    assert "single-end" in capsys.readouterr().err
     monkeypatch.setenv("FQTOOL_TPU_COORDINATOR", "localhost:1")
     monkeypatch.setenv("FQTOOL_TPU_NPROCS", "2")
-    assert _run(main, _argv(tmp_path / "r1.fq", tmp_path / "r2.fq"), tmp_path) == 255
-    assert "multi-host" in capsys.readouterr().err
+    for argv in (_argv(tmp_path / "r1.fq", tmp_path / "r2.fq"),
+                 ["-i", str(tmp_path / "r1.fq"), "-o", "o.fq"]):
+        assert _run(main, argv, tmp_path) == 255
+        assert "multi-host" in capsys.readouterr().err
+
+
+def test_paired_end_stdin(tmp_path, monkeypatch):
+    write_pairs(tmp_path / "r1.fq", tmp_path / "r2.fq", 600, seed=4)
+    rep, _, n = _compare(tmp_path, _argv("/dev/stdin", tmp_path / "r2.fq", "-q"),
+                         monkeypatch, stdin=tmp_path / "r1.fq")
+    assert rep["Summary"]["BeforeFiltering"]["TotalReads"] == 1200 and n > 0
 
 
 def test_cuda_without_a_card_is_an_error(tmp_path, capsys, monkeypatch):
@@ -128,6 +156,20 @@ def test_cuda_without_a_card_is_an_error(tmp_path, capsys, monkeypatch):
     assert rc != 0
     assert "CUDA" in capsys.readouterr().err
     assert not (tmp_path / "o1.fq.gz").exists()
+
+
+def test_cuda_without_a_card_is_an_error_single_end(tmp_path, capsys, monkeypatch):
+    import torch
+
+    from fqtool_tpu_torch.main import main
+    if torch.cuda.is_available():
+        pytest.skip("this check is for hosts without a CUDA device")
+    monkeypatch.setenv("FQTOOL_TPU_TORCH_DEVICE", "cuda")
+    write_reads(tmp_path / "r.fq", 10, seed=1)
+    rc = _run(main, ["-i", str(tmp_path / "r.fq"), "-o", "o.fq.gz", "-g"], tmp_path)
+    assert rc != 0
+    assert "CUDA" in capsys.readouterr().err
+    assert not (tmp_path / "o.fq.gz").exists()
 
 
 def test_chip_smoke_fails_without_a_card():

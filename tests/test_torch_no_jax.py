@@ -1,7 +1,7 @@
 """fqtool_tpu_torch must run where JAX is not installed (the GPU hosts).
 
 A subprocess installs an import hook that refuses ``jax``/``jaxlib``, then
-runs the port's CLI on a small paired input on the CPU, imports
+runs the port's CLI on a small paired or single-end input on the CPU, imports
 ``chip_smoke`` (and with it everything the smoke run uses), and checks that
 no JAX module was loaded on the way.
 """
@@ -14,6 +14,7 @@ import sys
 from pathlib import Path
 
 from .torch_pairs import write_pairs
+from .torch_reads import ADAPTER, write_reads
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -35,15 +36,28 @@ sys.exit(rc)
 """
 
 
-def test_port_cli_runs_without_jax(tmp_path):
-    write_pairs(tmp_path / "r1.fq", tmp_path / "r2.fq", 500, seed=3)
+def _run_without_jax(tmp_path, argv):
     env = dict(os.environ, FQTOOL_TPU_TORCH_DEVICE="cpu",
                PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    argv = ["-i", "r1.fq", "-I", "r2.fq", "-o", "o1.fq.gz", "-O", "o2.fq.gz",
-            "-q", "-f", "3", "-t", "2", "--unpaired_read1", "up1.fq.gz",
-            "--failed_out", "failed.fq.gz", "--ora"]
     proc = subprocess.run([sys.executable, "-c", _SCRIPT, *argv], cwd=tmp_path,
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert (tmp_path / "o1.fq.gz").stat().st_size > 0
     assert (tmp_path / "report.json").exists()
+
+
+def test_port_cli_runs_without_jax(tmp_path):
+    write_pairs(tmp_path / "r1.fq", tmp_path / "r2.fq", 500, seed=3)
+    _run_without_jax(tmp_path, [
+        "-i", "r1.fq", "-I", "r2.fq", "-o", "o1.fq.gz", "-O", "o2.fq.gz",
+        "-q", "-f", "3", "-t", "2", "--unpaired_read1", "up1.fq.gz",
+        "--failed_out", "failed.fq.gz", "--ora"])
+    assert (tmp_path / "o1.fq.gz").stat().st_size > 0
+
+
+def test_port_single_end_runs_without_jax(tmp_path):
+    write_reads(tmp_path / "r.fq", 1000, seed=3)
+    _run_without_jax(tmp_path, [
+        "-i", "r.fq", "-o", "o.fq.gz", "-g", "-x", "-a", "--adapter_of_read1",
+        ADAPTER.decode(), "-d", "--kmer", "--kmer_length", "6", "-u",
+        "--umi_location", "3", "--umi_length", "8"])
+    assert (tmp_path / "o.fq.gz").stat().st_size > 0

@@ -14,6 +14,7 @@ import pytest
 from fqtool_tpu.pipeline.pe import pe_pipeline as jax_pe_pipeline
 from fqtool_tpu_torch.ops.stats import BatchStats
 from fqtool_tpu_torch.pipeline import pe as tpe
+from fqtool_tpu_torch.pipeline.device import outputs_to_numpy, to_device
 
 from .torch_pairs import kernel_params, make_pairs
 
@@ -57,8 +58,8 @@ def test_pe_pipeline_matches_jax(flags):
     B = len(keep)
     zeros = np.zeros(B, np.int32)
     ref = jax_pe_pipeline.__wrapped__(*planes, zeros, zeros, keep, real, p=p, p2=p2)
-    got = tpe.outputs_to_numpy(tpe.pe_pipeline(
-        *tpe.to_device(planes + [keep, real], "cpu"), p=p, p2=p2))
+    got = outputs_to_numpy(tpe.pe_pipeline(
+        *to_device(planes + [keep, real], "cpu"), p=p, p2=p2))
     assert sorted(got) == sorted(ref)
     for key, r in ref.items():
         g = got[key]
@@ -91,4 +92,4 @@ def test_unported_stage_raises(flag):
     extra = ("--kmer_length", "5") if flag == "--kmer" else ()
     p, p2 = kernel_params(flag, *extra)
     with pytest.raises(NotImplementedError):
-        tpe.pe_pipeline(*tpe.to_device(planes + [keep, real], "cpu"), p=p, p2=p2)
+        tpe.pe_pipeline(*to_device(planes + [keep, real], "cpu"), p=p, p2=p2)

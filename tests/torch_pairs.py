@@ -46,14 +46,25 @@ def make_pairs(n: int, seed: int, read_len: int = 151):
     return seq1, quals[0], seq2, quals[1], isize
 
 
-def kernel_params(*flags: str):
-    """(p, p2) KernelParams of a paired-end argv with ``flags``, derived as
-    ``config.cli.parse_args`` derives them (no input files needed)."""
+def _options(argv):
+    """Options for ``argv``, derived as ``config.cli.parse_args`` derives
+    them (no input files needed)."""
     from fqtool_tpu.config.cli import build_parser, namespace_to_options
-    argv = ["-i", "r1.fq", "-I", "r2.fq", "-o", "o1.fq", "-O", "o2.fq", *flags]
     opt = namespace_to_options(build_parser().parse_args(argv))
     opt.update(argv)
+    return opt
+
+
+def kernel_params(*flags: str):
+    """(p, p2) KernelParams of a paired-end argv with ``flags``."""
+    opt = _options(["-i", "r1.fq", "-I", "r2.fq", "-o", "o1.fq", "-O", "o2.fq",
+                    *flags])
     return opt.kernel_params(is_r2=False), opt.kernel_params(is_r2=True)
+
+
+def kernel_params_se(*flags: str):
+    """KernelParams of a single-end argv with ``flags``."""
+    return _options(["-i", "r1.fq", "-o", "o1.fq", *flags]).kernel_params()
 
 
 def random_batch(rng, B: int = 256, L: int = 152):
@@ -83,8 +94,9 @@ def random_batch(rng, B: int = 256, L: int = 152):
     return seq, qual, rlen
 
 
-def _fastq_bytes(seq: np.ndarray, qual: np.ndarray, mate: int,
-                 first: int) -> bytes:
+def fastq_bytes(seq: np.ndarray, qual: np.ndarray, mate: int,
+                first: int) -> bytes:
+    """FASTQ records ``@SIM:<first + i> <mate>:N:0:ACGTAC`` of the rows."""
     n, L = seq.shape
     names = np.array([b"@SIM:%09d %d:N:0:ACGTAC" % (first + i, mate)
                       for i in range(n)])
@@ -109,7 +121,7 @@ def write_pairs(path1, path2, n: int, seed: int, read_len: int = 151,
         for k, lo in enumerate(range(0, n, block)):
             m = min(block, n - lo)
             s1, q1, s2, q2, isz = make_pairs(m, seed + k, read_len)
-            f1.write(_fastq_bytes(s1, q1, 1, lo))
-            f2.write(_fastq_bytes(s2, q2, 2, lo))
+            f1.write(fastq_bytes(s1, q1, 1, lo))
+            f2.write(fastq_bytes(s2, q2, 2, lo))
             sizes.append(isz)
     return np.concatenate(sizes) if sizes else np.zeros(0, np.int32)
