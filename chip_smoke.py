@@ -8,7 +8,15 @@ Phases, each of which stops the run with a nonzero exit on failure:
 2. build the CUDA overlap kernel from csrc/overlap.cu with nvcc;
 3. the kernel against its plain PyTorch version, both on the card, output
    for output (exact: all outputs are integers), over several shapes and
-   parameters, and both timed per 16384 x 151 chunk with CUDA events;
+   parameters and the edge cases of ``tests/torch_pairs.py`` (lowercase and
+   non-ACGTN bytes, unpadded widths, lengths 0-3, diff limits 0 and 60,
+   windows across word boundaries); then, per 16384 x 151 chunk, the
+   kernel's device-only time (torch.profiler, ``overlap_kernel`` summed over
+   20 launches), the wrapper's and the plain version's CUDA-event times, and
+   the bound: bytes at 3.35 TB/s against the byte compares this input needs
+   at four per 32-bit op.  ``--baseline DIR`` times the overlap kernel of
+   another checkout of the port (e.g. the parent commit unpacked there) in
+   the same call, in turns with this one;
 4. the paired-end main path: 1,000,000 synthetic 2x151 bp pairs through
    ``fqtool_tpu_torch.main`` on cuda with ``-q -f 3 -t 2`` and every output
    stream; the kernel's launch counter must cover every chunk.  The run is
@@ -37,6 +45,8 @@ main-path phases).
 from __future__ import annotations
 
 import argparse
+import importlib
+import importlib.util
 import itertools
 import json
 import os
@@ -67,7 +77,8 @@ from fqtool_tpu_torch.ops import qualcut as se_qualcut  # noqa: E402
 from fqtool_tpu_torch.ops import stats as se_stats  # noqa: E402
 from fqtool_tpu_torch.pipeline import se as se_pipe  # noqa: E402
 from tests.oracle import compare_json, diff_fastq, read_fastq  # noqa: E402
-from tests.torch_pairs import kernel_params_se, make_pairs, write_pairs  # noqa: E402
+from tests.torch_pairs import (OVERLAP_EDGE_CASES, edge_pairs,  # noqa: E402
+                               kernel_params_se, make_pairs, write_pairs)
 from tests.torch_reads import ADAPTER, make_reads, write_reads  # noqa: E402
 
 PE_CHUNK = 16384
@@ -135,7 +146,77 @@ def _time_ms(fn, reps=20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_kernel() -> dict:
+def _check_kernel(label: str, args, dl: int, req: int) -> int:
+    """The kernel against the plain version on the card; max |err|."""
+    got = overlap_cuda.analyze_cuda(*args, dl, req)
+    torch.cuda.synchronize()
+    ref = overlap.analyze(*args, dl, req)
+    errs = {name: int((a.long() - b.long()).abs().max()) if a.numel() else 0
+            for name, a, b in zip(ref._fields, got, ref)}
+    hits = int(got.overlapped.sum())
+    log(f"kernel vs plain {label} diff_limit={dl} require={req}: overlapped "
+        f"{hits}/{args[0].shape[0]}, max |err| {errs} (tolerance 0: integer outputs)")
+    if max(errs.values()):
+        raise SystemExit(f"overlap kernel disagrees with the plain version: {errs}")
+    return max(errs.values())
+
+
+# peak rates of one H100 SXM: HBM bytes/s (data sheet), and int32 ALU ops/s
+# (132 SMs x 64 INT32 lanes x 1.98 GHz boost clock)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def _overlap_compares(r1, r2, res, require: int) -> int:
+    """Byte compares that the reference scan order needs on this input: at
+    every offset evaluated up to the first accepted one (all of both phases
+    when none is), min(overlap, 50) bases; then the full diff at the chosen
+    offset."""
+    r1, r2 = r1.long()[:, None], r2.long()[:, None]
+    off = res.offset.long()[:, None]
+    found = res.overlapped[:, None]
+    c1 = (r1 - require).clamp(min=0)
+    c2 = (r2 - require).clamp(min=0)
+    # offsets evaluated in each phase (an accepted offset 0 is phase 1's
+    # unless phase 1 has no offsets)
+    m1 = torch.where(found & (off >= 0) & (c1 > 0), off + 1, c1)
+    m2 = torch.where(found, torch.where(off <= 0, -off + 1, 0), c2)
+    m2 = torch.where(found & (off == 0) & (c1 > 0), 0, m2)
+    k = torch.arange(int(max(r1.max(), r2.max(), 1)), device=r1.device)[None, :]
+    n1 = (torch.minimum(r1 - k, r2).clamp(0, 50) * (k < m1)).sum()
+    n2 = (torch.minimum(r1, r2 - k).clamp(0, 50) * (k < m2)).sum()
+    return int(n1 + n2 + res.overlap_len.long().clamp(min=0).sum())
+
+
+def _kernel_device_ms(fn, reps=20):
+    """Mean device time of the ``overlap_kernel`` activities of ``reps``
+    calls of ``fn`` (torch.profiler), or None when the profiler saw fewer
+    than one such activity per call."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA and "overlap_kernel" in e.name]
+    return sum(us) / reps / 1e3 if len(us) == reps else None
+
+
+def _load_overlap_cuda(root: Path):
+    """``ops/overlap_cuda.py`` of another checkout of the port, imported as
+    its own package (its kernel builds from that checkout's source)."""
+    ops = root / "fqtool_tpu_torch" / "ops"
+    spec = importlib.util.spec_from_file_location(
+        "baseline_ops", ops / "__init__.py", submodule_search_locations=[str(ops)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = pkg
+    spec.loader.exec_module(pkg)
+    return importlib.import_module(spec.name + ".overlap_cuda")
+
+
+def phase_kernel(baseline: Path = None) -> dict:
     cases = [(PE_CHUNK, 151, 151, 5, 30, 0.0), (PE_CHUNK, 151, 100, 5, 30, 0.0),
              (4096, 40, 40, 5, 30, 0.0), (1024, 500, 300, 5, 30, 0.0),
              (4096, 151, 151, 5, 30, 0.3)]
@@ -143,33 +224,69 @@ def phase_kernel() -> dict:
               for d in (0, 1, 5, 10) for r in (10, 30, 60)]
     max_err = 0
     for k, (B, L1, L2, dl, req, zf) in enumerate(cases):
-        s1, r1, s2, r2 = _case(B, L1, L2, seed=100 + k, zero_frac=zf)
-        got = overlap_cuda.analyze_cuda(s1, r1, s2, r2, dl, req)
-        torch.cuda.synchronize()
-        ref = overlap.analyze(s1, r1, s2, r2, dl, req)
-        errs = {}
-        for name, a, b in zip(ref._fields, got, ref):
-            errs[name] = int((a.long() - b.long()).abs().max()) if B else 0
-        err = max(errs.values())
-        max_err = max(max_err, err)
-        hits = int(got.overlapped.sum())
-        log(f"kernel vs plain B={B} L={L1}/{L2} diff_limit={dl} require={req} "
-            f"zero_rows={zf}: overlapped {hits}/{B}, max |err| {errs} "
-            "(tolerance 0: integer outputs)")
-        if err:
-            raise SystemExit(f"overlap kernel disagrees with the plain version: {errs}")
-    s1, r1, s2, r2 = _case(PE_CHUNK, 151, 151, seed=7)
-    # plain, kernel, kernel, plain: both timed inside one call on one card
-    t_plain = [_time_ms(lambda: overlap.analyze(s1, r1, s2, r2, 5, 30))]
-    t_kern = [_time_ms(lambda: overlap_cuda.analyze_cuda(s1, r1, s2, r2, 5, 30))
-              for _ in range(2)]
-    t_plain.append(_time_ms(lambda: overlap.analyze(s1, r1, s2, r2, 5, 30)))
+        args = _case(B, L1, L2, seed=100 + k, zero_frac=zf)
+        max_err = max(max_err, _check_kernel(
+            f"B={B} L={L1}/{L2} zero_rows={zf}", args, dl, req))
+    for k, (L1, L2, dl, req, garbage) in enumerate(OVERLAP_EDGE_CASES):
+        args = tuple(torch.as_tensor(a).cuda() for a in
+                     edge_pairs(4096, L1, L2, seed=200 + k, garbage=garbage))
+        max_err = max(max_err, _check_kernel(
+            f"edge B=4096 L={L1}/{L2} unpadded, past-length bytes "
+            f"{'random' if garbage else 'zero'}", args, dl, req))
+
+    s1, r1, s2, r2 = args = _case(PE_CHUNK, 151, 151, seed=7)
+    kern = lambda: overlap_cuda.analyze_cuda(*args, 5, 30)  # noqa: E731
+    plain = lambda: overlap.analyze(*args, 5, 30)  # noqa: E731
+    fns = {"this": kern}
+    if baseline is not None:
+        base = _load_overlap_cuda(baseline)
+        base.build()
+        fns["baseline"] = lambda: base.analyze_cuda(*args, 5, 30)
+    # plain, kernel, kernel, plain (and the baseline's kernel in turns with
+    # this one) inside one call on one card; the CUDA-event times first,
+    # since launches are slower once the profiler has run
+    t_plain = [_time_ms(plain)]
+    t_kern = [_time_ms(kern) for _ in range(2)]
+    t_plain.append(_time_ms(plain))
+    order = ("baseline", "this", "this", "baseline") if baseline else ()
+    turns = {who: [] for who in fns}
+    for who in order:
+        turns[who].append(_time_ms(fns[who]))
+    t_dev = [_kernel_device_ms(kern) for _ in range(2)]
+    turns_dev = {who: [] for who in fns}
+    for who in order:
+        turns_dev[who].append(_kernel_device_ms(fns[who]))
     ms, plain_ms = min(t_kern), min(t_plain)
-    log(f"per 16384x151 chunk: kernel {t_kern} ms, plain {t_plain} ms")
+    device_ms = None if None in t_dev else min(t_dev)
+    log(f"per 16384x151 chunk (planes {s1.shape[1]} wide): wrapper {t_kern} ms "
+        f"(CUDA events, 20 calls), kernel device-only {t_dev} ms (torch.profiler, "
+        f"overlap_kernel over 20 launches), plain {t_plain} ms")
+    if baseline is not None:
+        log(f"overlap kernel of {baseline} against this checkout's, in turns "
+            "(baseline, this, this, baseline): wrapper ms per call (CUDA "
+            f"events) {json.dumps(turns)}, kernel device-only ms per launch "
+            f"{json.dumps(turns_dev)}")
+
+    res = overlap.analyze(*args, 5, 30)
+    B = s1.shape[0]
+    nbytes = s1.numel() + s2.numel() + 4 * (r1.numel() + r2.numel()) + 13 * B
+    compares = _overlap_compares(r1, r2, res, 30)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = compares / 4 / INT32_OPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    share = (f"{bound_ms / device_ms:.4f} of the device-only time"
+             if device_ms else "device-only time not measured")
+    log(f"overlap bound per chunk: {nbytes} bytes at 3.35 TB/s = {t_bytes * 1e3:.3f} us; "
+        f"{compares} byte compares ({compares / B:.1f} a pair, four per 32-bit op) "
+        f"at {INT32_OPS_PER_S / 1e12:.2f} T int32 ops/s = {t_ops * 1e3:.3f} us; "
+        f"bound by {bound_by}, {bound_ms * 1e3:.3f} us = {share}")
     return {"name": "overlap_analyze", "route": "cuda",
             "source": "fqtool_tpu_torch/csrc/overlap.cu",
             "replaces": "fqtool_tpu/ops/pallas_overlap2.py:89",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": max_err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def _run_cli(work: Path, r1: Path, r2: Path, device: str, tag: str) -> dict:
@@ -511,13 +628,16 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=1_000_000)
     ap.add_argument("--subset", type=int, default=50_000)
     ap.add_argument("--reads", type=int, default=2_000_000)
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="another checkout of the port whose overlap kernel "
+                         "phase 3 times beside this one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: torch sees no CUDA device\n")
         return 1
     phase_card()
     phase_build()
-    entry = phase_kernel()
+    entry = phase_kernel(args.baseline)
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)

@@ -13,9 +13,9 @@ from __future__ import annotations
 import time
 from typing import List, Optional
 
-from fqtool_tpu.config.options import Options
+from ..config.options import Options
 from .filterresult import FilterResultAccumulator
-from fqtool_tpu.host.stats import StatsAccumulator
+from .stats import StatsAccumulator
 
 _CSS = """td {border:1px solid #dddddd;padding:5px;font-size:12px;}
 table {border:1px solid #999999;padding:2x;border-collapse:collapse; width:800px}
@@ -144,7 +144,7 @@ def _stats_sections(st: StatsAccumulator, filtering: str, read_name: str) -> str
     colors6 = colors[:4] + ["rgba(255, 0, 0, 1.0)", "rgba(20,20,20,1.0)"]
     bases_total = sm["bases"]
     series = []
-    from fqtool_tpu.host.stats import BIN_OF
+    from .stats import BIN_OF
     for b, c in zip(["A", "T", "C", "G", "N", "GC"], colors6):
         if len(b) == 1:
             count = int(sm["base_contents"][BIN_OF[b]])
@@ -175,7 +175,7 @@ def _stats_sections(st: StatsAccumulator, filtering: str, read_name: str) -> str
 
 
 def _kmer_section(st: StatsAccumulator, filtering: str, read_name: str) -> str:
-    from fqtool_tpu.host.evaluator import int2seq
+    from .evaluator import int2seq
 
     k = st.kmer_len
     sub = f"{filtering}: {read_name}: KMER counting"

@@ -13,9 +13,9 @@ from __future__ import annotations
 import json
 from typing import Optional
 
-from fqtool_tpu.config.options import Options
+from ..config.options import Options
 from .filterresult import FilterResultAccumulator
-from fqtool_tpu.host.stats import StatsAccumulator
+from .stats import StatsAccumulator
 
 
 def build_report(opt: Options,

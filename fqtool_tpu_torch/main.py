@@ -15,11 +15,10 @@ import os
 import sys
 from typing import List, Optional
 
-from fqtool_tpu.config.cli import (build_parser, namespace_to_options,
-                                   parse_args)
-from fqtool_tpu.config.options import Options, OptionError
-from fqtool_tpu.host import evaluator
-from fqtool_tpu.io.fastq import FastqIOError
+from .config.cli import build_parser, namespace_to_options, parse_args
+from .config.options import Options, OptionError
+from .host import evaluator
+from .io.fastq import FastqIOError
 
 from .pipeline.runner import loginfo
 
@@ -102,11 +101,11 @@ def _spool_stdin(opt: Options) -> Optional[str]:
 def _activate_headcache(opt: Options) -> None:
     """Cache the head packs the pre-passes consume, framed as the main pass
     reads them, so every input byte is inflated and tokenized once
-    (fqtool_tpu/io/headcache.py).  Only worth it when a pre-pass reads a
+    (io/headcache.py).  Only worth it when a pre-pass reads a
     substantial head (the ORS prefix, the split-sizing record count)."""
     if not (opt.over_rep.enabled or opt.split.by_file_number):
         return
-    from fqtool_tpu.io import headcache
+    from .io import headcache
 
     if opt.is_paired():
         from .pipeline.pe_runner import main_pack_reads
@@ -133,8 +132,8 @@ def _prepass(opt: Options) -> None:
 
 
 def _run(opt: Options, device: str) -> None:
-    from fqtool_tpu.host.tracing import stage
-    from fqtool_tpu.io import headcache
+    from .host.tracing import stage
+    from .io import headcache
 
     try:
         _activate_headcache(opt)
@@ -154,7 +153,7 @@ def _run(opt: Options, device: str) -> None:
 
 
 def run(opt: Options, device: str) -> None:
-    from fqtool_tpu.io.fastq import set_worker_threads
+    from .io.fastq import set_worker_threads
 
     # -w sizes the shared host pool (deflate/format)
     set_worker_threads(opt.thread)

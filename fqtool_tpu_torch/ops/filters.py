@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from fqtool_tpu.config.options import KernelParams
+from ..config.options import KernelParams
 
 from .common import N, valid_mask
 

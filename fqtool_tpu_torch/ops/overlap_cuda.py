@@ -5,9 +5,11 @@ the package's own source, into ``build/torch_kernels/`` at the repository
 root, keyed by a hash of the source; a build failure raises, and nvcc's
 output (ptxas's register and spill counts included) is kept beside the
 library as ``liboverlap.log``.  The wrapper
-checks its inputs, allocates the outputs, launches on PyTorch's current
-stream, raises on a nonzero ``cudaGetLastError()`` and counts its launches in
-the module-level ``launches``.
+checks its inputs, allocates the outputs (a bool plane and one int32 [3, B]
+plane, which the kernel fills directly), picks the widest load that each
+plane's address and row width allow, launches on PyTorch's current stream,
+raises on a nonzero ``cudaGetLastError()`` and counts its launches in the
+module-level ``launches``.
 """
 
 from __future__ import annotations
@@ -79,10 +81,20 @@ def build() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(so))
         lib.fq_overlap_launch.restype = ctypes.c_int
         lib.fq_overlap_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-            + [ctypes.c_void_p] * 5)
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
         _lib = lib
         return lib
+
+
+def vector_width(ptr: int, width: int) -> int:
+    """The widest load, 16 or 8 bytes (1: bytewise), that every row of a
+    row-major uint8 plane at address ``ptr`` with ``width``-byte rows starts
+    aligned to."""
+    for v in (16, 8):
+        if ptr % v == 0 and width % v == 0:
+            return v
+    return 1
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
@@ -114,17 +126,20 @@ def analyze_cuda(seq1: torch.Tensor, rlen1: torch.Tensor,
     L2 = seq2.shape[1]
     if seq2.shape[0] != B or rlen1.shape[0] != B or rlen2.shape[0] != B:
         raise ValueError("seq1, seq2, rlen1 and rlen2 disagree on the batch size")
-    outs = [torch.empty((B,), dtype=torch.int32, device=dev) for _ in range(4)]
+    overlapped = torch.empty((B,), dtype=torch.bool, device=dev)
+    out = torch.empty((3, B), dtype=torch.int32, device=dev)
     if B > 0:
         lib = build()
+        p1, p2 = seq1.data_ptr(), seq2.data_ptr()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.fq_overlap_launch(
-                seq1.data_ptr(), seq2.data_ptr(), rlen1.data_ptr(),
-                rlen2.data_ptr(), B, L1, L2, int(diff_limit),
-                int(overlap_require), *(o.data_ptr() for o in outs), stream)
+                p1, p2, rlen1.data_ptr(), rlen2.data_ptr(), B, L1, L2,
+                vector_width(p1, L1), vector_width(p2, L2), int(diff_limit),
+                int(overlap_require), overlapped.data_ptr(), out.data_ptr(),
+                dev.index, stream)
         if err != 0:
             raise RuntimeError(f"overlap kernel launch failed: CUDA error {err}")
         launches += 1
-    found, offset, olen, diff = outs
-    return OverlapResult(found != 0, offset, olen, diff)
+    offset, olen, diff = out
+    return OverlapResult(overlapped, offset, olen, diff)

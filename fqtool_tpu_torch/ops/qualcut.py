@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from fqtool_tpu.config.options import KernelParams
+from ..config.options import KernelParams
 
 from .common import (N, align, align_static, first_true, last_true, positions,
                      prefix_sums)

@@ -20,7 +20,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from fqtool_tpu.config.options import KernelParams
+from ..config.options import KernelParams
 
 from ..ops import filters as ops_filters
 from ..ops import overlap_select as ops_overlap

@@ -19,16 +19,15 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from fqtool_tpu.config.options import Options
-from fqtool_tpu.host.duplicate import DuplicateTable
-from fqtool_tpu.host.stats import StatsAccumulator
-from fqtool_tpu.host.tracing import stage
-from fqtool_tpu.host.umi import process_umi
-from fqtool_tpu.io.fastq import (AsyncWriter, ReadPack, format_array_records,
-                                 format_plane_array_records, prefetch_iter)
-
+from ..config.options import Options
 from ..host import report_json
+from ..host.duplicate import DuplicateTable
 from ..host.filterresult import FilterResultAccumulator
+from ..host.stats import StatsAccumulator
+from ..host.tracing import stage
+from ..host.umi import process_umi
+from ..io.fastq import (AsyncWriter, ReadPack, format_array_records,
+                        format_plane_array_records, prefetch_iter)
 from ..ops.filters import PASS_FILTER
 from .pe import pe_pipeline_call
 from .runner import (_TAG_BUF, _TAG_LEN, _TAG_OFF, chunk_rows,
@@ -89,7 +88,7 @@ def _assemble_merged(mat1s, mat1q, mat2s, mat2q, front1, front2, rlen2,
     """Host-side merged-read construction (overlapanalysis.cpp:74-104):
     merged = r1[0:len1] ++ revcomp(r2)[ol : ol+len2].  Native row-copy for
     the selected rows when available; numpy row gathers otherwise."""
-    from fqtool_tpu.io import native
+    from ..io import native
 
     n = mat1s.shape[0]
     mlen = len1 + len2
@@ -187,7 +186,7 @@ class PairEndRunner:
                     for s in r[k]:
                         w.write(s)
 
-        from fqtool_tpu.io.headcache import iter_packs_paired_cached
+        from ..io.headcache import iter_packs_paired_cached
         it = prefetch_iter(iter_packs_paired_cached(
             opt.in1, opt.in2, opt.interleaved_input,
             pack_reads, opt.phred64))
@@ -398,7 +397,7 @@ class PairEndRunner:
                     np.asarray(out[f"polyx_trim_len{side}"])[:n], m)
 
         # adapter events (bulk np.unique counting, host/accounting.py) ---
-        from fqtool_tpu.host.accounting import span_counts, suffix_counts
+        from ..host.accounting import span_counts, suffix_counts
         if "ov_trimmed" in out:
             ovm = np.asarray(out["ov_trimmed"])[:n] & kchunk
             lb1 = np.asarray(out["len1_before_ov_trim"])[:n].astype(np.int64)
@@ -501,7 +500,7 @@ class PairEndRunner:
             if self._ora_post1_defer is not None:
                 # multi-host: spool the merged-stream emit order (merged read
                 # content or unmerged-kept r1) for the deferred global replay
-                from fqtool_tpu.host.ora_defer import place_segments, ragged_gather
+                from ..host.ora_defer import place_segments, ragged_gather
                 key = self._record_base + lo
                 mmask = m_written[idx1]
                 lens1 = np.where(mmask, m_rlen[idx1],
@@ -543,7 +542,7 @@ class PairEndRunner:
             # format on the shared pool (native formatter releases the GIL):
             # overlaps the next chunk's fetch; every input is chunk-local or
             # immutable, and complete_pack resolves the future in order
-            from fqtool_tpu.io.fastq import shared_pool
+            from ..io.fastq import shared_pool
 
             def fmt(args=(pack1, pack2, lo, n, m_written, m_unm & pass1v,
                           m_unm & pass2v, m_seq, m_qual, m_rlen, m_len1,
@@ -600,7 +599,7 @@ class PairEndRunner:
             if sampling:
                 idx = np.flatnonzero(bothpass)
                 if self._ora_post1_defer is not None:
-                    from fqtool_tpu.host.ora_defer import ragged_gather
+                    from ..host.ora_defer import ragged_gather
                     key = self._record_base + lo
                     self._ora_post1_defer.add_interval(
                         key, ragged_gather(mat1s, idx, s1[idx], rlen1[idx]),
@@ -832,7 +831,7 @@ def _merged_names_bulk(pack, rows: np.ndarray, len1: np.ndarray,
     (flat uint8 buffer, per-row offsets int64, per-row lengths int64),
     replicating the scalar's slice semantics exactly (pos == 0 slices
     ``name[:-1]``; a name with no space keeps only the tag)."""
-    from fqtool_tpu.host.names import RaggedBuilder, name_matrix
+    from ..host.names import RaggedBuilder, name_matrix
 
     k = len(rows)
     if k == 0:

@@ -22,16 +22,15 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from fqtool_tpu.config.options import Options
-from fqtool_tpu.host.duplicate import DuplicateTable
-from fqtool_tpu.host.stats import StatsAccumulator
-from fqtool_tpu.host.tracing import stage
-from fqtool_tpu.host.umi import process_umi
-from fqtool_tpu.io.fastq import (AsyncWriter, OutputWriter, ReadPack,
-                                 format_selected, prefetch_iter)
-
+from ..config.options import Options
 from ..host import report_json
+from ..host.duplicate import DuplicateTable
 from ..host.filterresult import FilterResultAccumulator
+from ..host.stats import StatsAccumulator
+from ..host.tracing import stage
+from ..host.umi import process_umi
+from ..io.fastq import (AsyncWriter, OutputWriter, ReadPack,
+                        format_selected, prefetch_iter)
 from ..ops.filters import FAILED_TYPES
 from .se import se_pipeline_call
 
@@ -125,7 +124,7 @@ def loginfo(msg: str) -> None:
 def index_filter_matches(opt, pack, blacklist) -> np.ndarray:
     """Vectorized per-read blacklist match of firstIndex()
     (reference: src/filter.cpp:213-232)."""
-    from fqtool_tpu.host.names import (first_index_batch, index_match_batch,
+    from ..host.names import (first_index_batch, index_match_batch,
                                        name_matrix)
 
     nb, no, nl = pack.name_arrays()
@@ -266,7 +265,7 @@ class SingleEndRunner:
                 for s in failedstrs:
                     failed_writer.write(s)
 
-        from fqtool_tpu.io.headcache import iter_packs_cached
+        from ..io.headcache import iter_packs_cached
         it = prefetch_iter(iter_packs_cached(opt.in1, pack_reads, opt.phred64))
         while True:
             with stage("input_wait"):
@@ -388,7 +387,7 @@ class SingleEndRunner:
 
         # adapter trim events (bulk np.unique counting, host/accounting.py)
         if "adapter_found" in out:
-            from fqtool_tpu.host.accounting import span_counts, suffix_counts
+            from ..host.accounting import span_counts, suffix_counts
             found = np.asarray(out["adapter_found"]) & keep
             pos = np.asarray(out["adapter_pos"]).astype(np.int64)
             before = np.asarray(out["len_after_polyg"]).astype(np.int64)

@@ -19,7 +19,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from fqtool_tpu.config.options import KernelParams
+from ..config.options import KernelParams
 
 from ..ops import adapter as ops_adapter
 from ..ops import dup as ops_dup

@@ -1,9 +1,11 @@
-"""fqtool_tpu_torch must run where JAX is not installed (the GPU hosts).
+"""fqtool_tpu_torch must run where JAX is not installed (the GPU hosts), and
+on its own: it imports nothing of the JAX package ``fqtool_tpu``.
 
-A subprocess installs an import hook that refuses ``jax``/``jaxlib``, then
-runs the port's CLI on a small paired or single-end input on the CPU, imports
+A subprocess installs an import hook that refuses ``jax``, ``jaxlib``,
+``fqtool_tpu`` and ``fqtool_tpu.*`` (not ``fqtool_tpu_torch``), then runs the
+port's CLI on a small paired or single-end input on the CPU, imports
 ``chip_smoke`` (and with it everything the smoke run uses), and checks that
-no JAX module was loaded on the way.
+none of them was loaded on the way.
 """
 
 from __future__ import annotations
@@ -21,16 +23,19 @@ REPO = Path(__file__).resolve().parent.parent
 _SCRIPT = r"""
 import importlib.abc, sys
 
+BLOCKED = ("jax", "jaxlib", "fqtool_tpu")
+
 class NoJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError(f"{name} is blocked: fqtool_tpu_torch must not import JAX")
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked: fqtool_tpu_torch must import "
+                              "neither JAX nor fqtool_tpu")
 
 sys.meta_path.insert(0, NoJax())
 from fqtool_tpu_torch.main import main
 rc = main(sys.argv[1:])
 import chip_smoke
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 sys.exit(rc)
 """

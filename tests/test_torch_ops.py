@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from fqtool_tpu.config import cli as jcli
 from fqtool_tpu.ops import filters as jfilters
 from fqtool_tpu.ops import qualcut as jqualcut
 from fqtool_tpu.ops import stats as jstats
@@ -63,9 +64,8 @@ TRIM_FLAGS = [
 def test_trim_and_cut(flags):
     rng = np.random.default_rng(len(flags))
     seq, qual, rlen = random_batch(rng, 256, 152)
-    p, p2 = kernel_params(*flags)
-    for pp in (p, p2):
-        ref = jqualcut.trim_and_cut(seq, qual, rlen, pp.front, pp.tail, pp)
+    for jp, pp in zip(kernel_params(*flags, cli=jcli), kernel_params(*flags)):
+        ref = jqualcut.trim_and_cut(seq, qual, rlen, jp.front, jp.tail, jp)
         got = tqualcut.trim_and_cut(torch.as_tensor(seq), torch.as_tensor(qual),
                                     torch.as_tensor(rlen), pp.front, pp.tail, pp)
         for name, a, b in zip(ref._fields, ref, got):
@@ -89,8 +89,9 @@ def test_pass_filter(flags):
     rng = np.random.default_rng(10 + len(flags))
     seq, qual, rlen = random_batch(rng, 256, 152)
     dropped = rng.random(256) < 0.1
+    jp, _ = kernel_params(*flags, cli=jcli)
     p, _ = kernel_params(*flags)
-    ref = jfilters.pass_filter(seq, qual, rlen, dropped, p)
+    ref = jfilters.pass_filter(seq, qual, rlen, dropped, jp)
     got = tfilters.pass_filter(torch.as_tensor(seq), torch.as_tensor(qual),
                                torch.as_tensor(rlen), torch.as_tensor(dropped), p)
     _same(ref, got, "result")

@@ -3,7 +3,11 @@
 
 Half of the rows carry planted overlaps (read2's tail is the reverse
 complement of read1's head), the rest are random; lengths include 0 and
-widths differ between the mates.  All four outputs are integers: exact.
+widths differ between the mates.  The edge cases of ``torch_pairs.edge_pairs``
+add lowercase and non-ACGTN bytes, unpadded widths, lengths 0-3, diff limits
+0 and 60 and windows across 32-bit word boundaries; ``chip_smoke.py`` holds
+the CUDA kernel against the plain version on the same cases.  All four
+outputs are integers: exact.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from fqtool_tpu.ops import overlap as jov
 from fqtool_tpu.ops.pallas_overlap2 import analyze_pallas2
 from fqtool_tpu_torch.ops import overlap as tov
 from fqtool_tpu_torch.ops import overlap_cuda, overlap_select
+
+from .torch_pairs import OVERLAP_EDGE_CASES, edge_pairs
 
 _COMP = {65: 84, 84: 65, 67: 71, 71: 67, 78: 78}
 
@@ -73,6 +79,25 @@ def test_analyze_matches_jnp(l1, l2, dl, req):
         assert got.overlapped.any() and not got.overlapped.all()
 
 
+@pytest.mark.parametrize("l1,l2,dl,req,garbage", OVERLAP_EDGE_CASES)
+def test_analyze_edge_cases_match_jnp(l1, l2, dl, req, garbage):
+    args = edge_pairs(512, l1, l2, seed=l1 * l2 + dl + req, garbage=garbage)
+    s1, r1, s2, r2 = args
+    for s, r in ((s1, r1), (s2, r2)):  # the cases the batch must hold
+        body = s[np.arange(s.shape[1])[None, :] < r[:, None]]
+        assert set(b"acgtn.R") <= set(body.tolist())
+        assert (r <= 3).sum() >= 8
+    ref = jov.analyze(s1, r1, s2, r2, dl, req)
+    got = _port(*args, dl, req)
+    _assert_same(ref, got)
+    hits = got.offset[got.overlapped].numpy()
+    if dl == 0:
+        assert not hits.size
+    elif dl == 5:  # accepted offsets in both phases, at every residue mod 4
+        assert (hits > 0).any() and (hits < 0).any()
+        assert set((np.abs(hits[hits != 0]) % 4).tolist()) == {0, 1, 2, 3}
+
+
 @pytest.mark.parametrize("l1,l2,dl,req", [
     (40, 40, 5, 30), (64, 48, 10, 10), (48, 72, 1, 30)])
 def test_analyze_matches_pallas_interpret(l1, l2, dl, req):
@@ -89,6 +114,12 @@ def test_reverse_complement():
     got = tov.reverse_complement(torch.as_tensor(seq1), torch.as_tensor(rlen1)).numpy()
     valid = np.arange(40)[None, :] < rlen1[:, None]
     assert np.array_equal(ref[valid], got[valid])
+
+
+def test_vector_width_follows_pointer_and_row_width():
+    vw = overlap_cuda.vector_width
+    assert [vw(256, w) for w in (160, 152, 148, 151, 37)] == [16, 8, 1, 1, 1]
+    assert [vw(256 + 8, 160), vw(256 + 4, 160), vw(256 + 2, 160)] == [8, 1, 1]
 
 
 def test_select_dispatches_cpu_to_plain_and_kernel_refuses_cpu():

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
+from fqtool_tpu.config import cli as jcli
 from fqtool_tpu.pipeline.pe import pe_pipeline as jax_pe_pipeline
 from fqtool_tpu_torch.ops.stats import BatchStats
 from fqtool_tpu_torch.pipeline import pe as tpe
@@ -54,10 +55,11 @@ def chunk(seed: int, B: int = 256):
 ], ids=["qualtrim", "cut-length-complexity", "cut-tail-meanqual"])
 def test_pe_pipeline_matches_jax(flags):
     planes, keep, real = chunk(len(flags))
+    jp, jp2 = kernel_params(*flags, cli=jcli)
     p, p2 = kernel_params(*flags)
     B = len(keep)
     zeros = np.zeros(B, np.int32)
-    ref = jax_pe_pipeline.__wrapped__(*planes, zeros, zeros, keep, real, p=p, p2=p2)
+    ref = jax_pe_pipeline.__wrapped__(*planes, zeros, zeros, keep, real, p=jp, p2=jp2)
     got = outputs_to_numpy(tpe.pe_pipeline(
         *to_device(planes + [keep, real], "cpu"), p=p, p2=p2))
     assert sorted(got) == sorted(ref)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
+from fqtool_tpu.config import cli as jcli
 from fqtool_tpu.pipeline.se import se_pipeline as jax_se_pipeline
 from fqtool_tpu_torch.pipeline import se as tse
 from fqtool_tpu_torch.pipeline.device import outputs_to_numpy, to_device
@@ -73,12 +74,13 @@ def test_se_pipeline_matches_jax(name):
     elif umi is not None:
         start0 = np.full(B, umi, np.int32)
         static = umi
-    kw = dict(p=p, adapter_r1=adapter, use_start0=umi is not None,
+    kw = dict(adapter_r1=adapter, use_start0=umi is not None,
               with_kmer=p.kmer_len > 0)
     ref = jax_se_pipeline.__wrapped__(seq, qual, lens, start0, keep,
-                                      np.ones(B, bool), start0_static=static, **kw)
+                                      np.ones(B, bool), start0_static=static,
+                                      p=kernel_params_se(*flags, cli=jcli), **kw)
     got = outputs_to_numpy(tse.se_pipeline(
-        *to_device([seq, qual, lens, start0, keep], "cpu"), **kw))
+        *to_device([seq, qual, lens, start0, keep], "cpu"), p=p, **kw))
     assert sorted(got) == sorted(ref)
     for key, r in ref.items():
         g = got[key]

@@ -46,25 +46,92 @@ def make_pairs(n: int, seed: int, read_len: int = 151):
     return seq1, quals[0], seq2, quals[1], isize
 
 
-def _options(argv):
+# read bytes of the overlap edge cases: both cases of ACGTN, and '.' and 'R',
+# which are compared as raw bytes and complement to 'N'
+_EDGE_BYTES = np.frombuffer(b"ACGTNacgtn.R", np.uint8)
+_EDGE_P = np.array([0.22] * 4 + [0.03] + [0.01] * 7)
+_EDGE_P /= _EDGE_P.sum()
+# read2 bytes whose complement is each read1 byte (``_COMP_FULL`` below)
+_COMP_FULL = np.full(256, ord("N"), np.uint8)
+for _s, _d in zip(b"ACGTacgt", b"TGCATGCA"):
+    _COMP_FULL[_s] = _d
+_PRE_IMAGES = {c: np.flatnonzero(_COMP_FULL[_EDGE_BYTES] == c)
+               for c in b"ACGTN"}
+
+
+# the overlap edge cases (tests/test_torch_overlap.py on the CPU, chip_smoke.py
+# phase 3 on the card): (l1, l2, diff_limit, require, random bytes past the
+# lengths); widths unpadded, so the kernel loads bytewise, except 48/64 (16
+# bytes at once)
+OVERLAP_EDGE_CASES = [
+    (37, 37, 5, 10, False), (37, 37, 60, 10, True), (50, 50, 0, 30, False),
+    (48, 64, 5, 10, True),
+    (50, 50, 5, 10, True), (51, 53, 5, 30, False), (53, 51, 5, 10, True),
+    (51, 51, 60, 30, False), (151, 151, 5, 30, False), (151, 151, 0, 30, True),
+    (151, 151, 60, 30, False), (151, 53, 5, 30, False), (37, 151, 5, 10, True)]
+
+
+def edge_pairs(B: int, L1: int, L2: int, seed: int, garbage: bool = False):
+    """(seq1, rlen1, seq2, rlen2) at exactly the widths given (no padding)
+    for the overlap scan's edge cases: lowercase and non-ACGTN bytes in both
+    reads, ~10% of lengths in 0-3, and in half of the rows a planted overlap
+    whose offset runs over every residue mod 4 in both phases (so the
+    compared windows start on and across 32-bit word boundaries).  Read2's
+    planted bases are any byte whose complement is read1's base, so a
+    lowercase base of read2 can match while one of read1 cannot.  Bytes past
+    each length are 0, as the pack reader leaves them, or with ``garbage``
+    random bytes, which no output may depend on."""
+    rng = np.random.default_rng(seed)
+    seq1 = rng.choice(_EDGE_BYTES, size=(B, L1), p=_EDGE_P)
+    seq2 = rng.choice(_EDGE_BYTES, size=(B, L2), p=_EDGE_P)
+    rlen1 = rng.integers(0, L1 + 1, B).astype(np.int32)
+    rlen2 = rng.integers(0, L2 + 1, B).astype(np.int32)
+    full = rng.random(B) < 0.4
+    rlen1[full] = L1
+    rlen2[full] = L2
+    tiny = rng.random(B) < 0.1
+    rlen1[tiny] = rng.integers(0, 4, tiny.sum())
+    tiny = rng.random(B) < 0.1
+    rlen2[tiny] = rng.integers(0, 4, tiny.sum())
+    for b in range(0, B, 2):
+        n1, n2 = int(rlen1[b]), int(rlen2[b])
+        # offset o >= 0: read1[o + i] pairs with rc(read2)[i]; o < 0 the other way
+        o = int(rng.integers(-n2 + 1, n1)) if n1 and n2 else 0
+        a, c = max(o, 0), max(-o, 0)
+        ol = min(n1 - a, n2 - c)
+        for i in range(max(ol, 0)):
+            want = seq1[b, a + i]
+            pre = _PRE_IMAGES.get(int(want))
+            if pre is not None and rng.random() > 0.02:
+                seq2[b, n2 - 1 - c - i] = _EDGE_BYTES[rng.choice(pre)]
+    for seq, rlen in ((seq1, rlen1), (seq2, rlen2)):
+        past = np.arange(seq.shape[1])[None, :] >= rlen[:, None]
+        seq[past] = rng.integers(0, 256, int(past.sum())) if garbage else 0
+    return seq1, rlen1, seq2, rlen2
+
+
+def _options(argv, cli=None):
     """Options for ``argv``, derived as ``config.cli.parse_args`` derives
-    them (no input files needed)."""
-    from fqtool_tpu.config.cli import build_parser, namespace_to_options
-    opt = namespace_to_options(build_parser().parse_args(argv))
+    them (no input files needed).  ``cli`` is the ``config.cli`` module to
+    parse with: the port's by default, ``fqtool_tpu.config.cli`` for the
+    KernelParams that the JAX package's functions take."""
+    if cli is None:
+        from fqtool_tpu_torch.config import cli
+    opt = cli.namespace_to_options(cli.build_parser().parse_args(argv))
     opt.update(argv)
     return opt
 
 
-def kernel_params(*flags: str):
+def kernel_params(*flags: str, cli=None):
     """(p, p2) KernelParams of a paired-end argv with ``flags``."""
     opt = _options(["-i", "r1.fq", "-I", "r2.fq", "-o", "o1.fq", "-O", "o2.fq",
-                    *flags])
+                    *flags], cli)
     return opt.kernel_params(is_r2=False), opt.kernel_params(is_r2=True)
 
 
-def kernel_params_se(*flags: str):
+def kernel_params_se(*flags: str, cli=None):
     """KernelParams of a single-end argv with ``flags``."""
-    return _options(["-i", "r1.fq", "-o", "o1.fq", *flags]).kernel_params()
+    return _options(["-i", "r1.fq", "-o", "o1.fq", *flags], cli).kernel_params()
 
 
 def random_batch(rng, B: int = 256, L: int = 152):
