@@ -14,9 +14,7 @@ Phases, each of which stops the run with a nonzero exit on failure:
    kernel's device-only time (torch.profiler, ``overlap_kernel`` summed over
    20 launches), the wrapper's and the plain version's CUDA-event times, and
    the bound: bytes at 3.35 TB/s against the byte compares this input needs
-   at four per 32-bit op.  ``--baseline DIR`` times the overlap kernel of
-   another checkout of the port (e.g. the parent commit unpacked there) in
-   the same call, in turns with this one;
+   at four per 32-bit op;
 4. the paired-end main path: 1,000,000 synthetic 2x151 bp pairs through
    ``fqtool_tpu_torch.main`` on cuda with ``-q -f 3 -t 2`` and every output
    stream; the kernel's launch counter must cover every chunk.  The run is
@@ -45,8 +43,6 @@ main-path phases).
 from __future__ import annotations
 
 import argparse
-import importlib
-import importlib.util
 import itertools
 import json
 import os
@@ -204,19 +200,7 @@ def _kernel_device_ms(fn, reps=20):
     return sum(us) / reps / 1e3 if len(us) == reps else None
 
 
-def _load_overlap_cuda(root: Path):
-    """``ops/overlap_cuda.py`` of another checkout of the port, imported as
-    its own package (its kernel builds from that checkout's source)."""
-    ops = root / "fqtool_tpu_torch" / "ops"
-    spec = importlib.util.spec_from_file_location(
-        "baseline_ops", ops / "__init__.py", submodule_search_locations=[str(ops)])
-    pkg = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = pkg
-    spec.loader.exec_module(pkg)
-    return importlib.import_module(spec.name + ".overlap_cuda")
-
-
-def phase_kernel(baseline: Path = None) -> dict:
+def phase_kernel() -> dict:
     cases = [(PE_CHUNK, 151, 151, 5, 30, 0.0), (PE_CHUNK, 151, 100, 5, 30, 0.0),
              (4096, 40, 40, 5, 30, 0.0), (1024, 500, 300, 5, 30, 0.0),
              (4096, 151, 151, 5, 30, 0.3)]
@@ -237,35 +221,17 @@ def phase_kernel(baseline: Path = None) -> dict:
     s1, r1, s2, r2 = args = _case(PE_CHUNK, 151, 151, seed=7)
     kern = lambda: overlap_cuda.analyze_cuda(*args, 5, 30)  # noqa: E731
     plain = lambda: overlap.analyze(*args, 5, 30)  # noqa: E731
-    fns = {"this": kern}
-    if baseline is not None:
-        base = _load_overlap_cuda(baseline)
-        base.build()
-        fns["baseline"] = lambda: base.analyze_cuda(*args, 5, 30)
-    # plain, kernel, kernel, plain (and the baseline's kernel in turns with
-    # this one) inside one call on one card; the CUDA-event times first,
-    # since launches are slower once the profiler has run
+    # plain, kernel, kernel, plain inside one call on one card; the CUDA-event
+    # times first, since launches are slower once the profiler has run
     t_plain = [_time_ms(plain)]
     t_kern = [_time_ms(kern) for _ in range(2)]
     t_plain.append(_time_ms(plain))
-    order = ("baseline", "this", "this", "baseline") if baseline else ()
-    turns = {who: [] for who in fns}
-    for who in order:
-        turns[who].append(_time_ms(fns[who]))
     t_dev = [_kernel_device_ms(kern) for _ in range(2)]
-    turns_dev = {who: [] for who in fns}
-    for who in order:
-        turns_dev[who].append(_kernel_device_ms(fns[who]))
     ms, plain_ms = min(t_kern), min(t_plain)
     device_ms = None if None in t_dev else min(t_dev)
     log(f"per 16384x151 chunk (planes {s1.shape[1]} wide): wrapper {t_kern} ms "
         f"(CUDA events, 20 calls), kernel device-only {t_dev} ms (torch.profiler, "
         f"overlap_kernel over 20 launches), plain {t_plain} ms")
-    if baseline is not None:
-        log(f"overlap kernel of {baseline} against this checkout's, in turns "
-            "(baseline, this, this, baseline): wrapper ms per call (CUDA "
-            f"events) {json.dumps(turns)}, kernel device-only ms per launch "
-            f"{json.dumps(turns_dev)}")
 
     res = overlap.analyze(*args, 5, 30)
     B = s1.shape[0]
@@ -628,16 +594,13 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=1_000_000)
     ap.add_argument("--subset", type=int, default=50_000)
     ap.add_argument("--reads", type=int, default=2_000_000)
-    ap.add_argument("--baseline", type=Path, default=None,
-                    help="another checkout of the port whose overlap kernel "
-                         "phase 3 times beside this one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: torch sees no CUDA device\n")
         return 1
     phase_card()
     phase_build()
-    entry = phase_kernel(args.baseline)
+    entry = phase_kernel()
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)

@@ -1,5 +1,5 @@
-# Copy of fqtool_tpu/host/filterresult.py with only its imports changed: the
-# original reaches JAX through fqtool_tpu/ops/filters.py.
+# Copy of fqtool_tpu/host/filterresult.py, unchanged: its relative imports reach
+# the port's own ops/filters.py, where the original's reach JAX.
 """Host-side filtering-result accumulator.
 
 Mirrors ``FilterResult`` (reference: src/filterresult.h/.cpp): 32-slot

@@ -1,5 +1,5 @@
-# Copy of fqtool_tpu/host/report_json.py with only its imports changed: the
-# original reaches JAX through fqtool_tpu/ops/filters.py.
+# Copy of fqtool_tpu/host/report_json.py, unchanged: its relative imports reach
+# the port's own ops/filters.py, where the original's reach JAX.
 """JSON report generation.
 
 Key-for-key port of ``JsonReporter::report`` (reference:

@@ -88,13 +88,10 @@ def build() -> ctypes.CDLL:
 
 
 def vector_width(ptr: int, width: int) -> int:
-    """The widest load, 16 or 8 bytes (1: bytewise), that every row of a
-    row-major uint8 plane at address ``ptr`` with ``width``-byte rows starts
-    aligned to."""
-    for v in (16, 8):
-        if ptr % v == 0 and width % v == 0:
-            return v
-    return 1
+    """The kernel's load width for a row-major uint8 plane at address ``ptr``
+    with ``width``-byte rows: 8 bytes where every row starts 8-aligned, else
+    1 (bytewise)."""
+    return 8 if ptr % 8 == 0 and width % 8 == 0 else 1
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,

@@ -1,8 +1,8 @@
 """No source of the port imports the JAX package ``fqtool_tpu`` (or JAX).
 
 Parses, with ``ast``, every ``.py`` under ``fqtool_tpu_torch/``, plus
-``chip_smoke.py`` and the ``tests/`` helpers it imports (followed through
-their own relative imports), and fails on any import of ``fqtool_tpu``,
+``chip_smoke.py``, ``overlap_ab.py`` and the ``tests/`` helpers they import
+(followed through their own relative imports), and fails on any import of ``fqtool_tpu``,
 ``fqtool_tpu.*``, ``jax`` or ``jaxlib``: ``import`` and ``from`` statements
 anywhere in the file, and ``importlib.import_module`` / ``__import__`` calls
 with a constant name.  Complements the import hook of
@@ -18,6 +18,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 BLOCKED = ("fqtool_tpu", "jax", "jaxlib")
+SCRIPTS = [REPO / "chip_smoke.py", REPO / "overlap_ab.py"]
 
 
 def _imports(tree: ast.AST):
@@ -38,9 +39,9 @@ def _imports(tree: ast.AST):
 
 
 def _smoke_helpers():
-    """tests/*.py that chip_smoke.py imports, and what those import in
-    turn from tests/ (relative imports)."""
-    todo = [REPO / "chip_smoke.py"]
+    """tests/*.py that chip_smoke.py and overlap_ab.py import, and what
+    those import in turn from tests/ (relative imports)."""
+    todo = list(SCRIPTS)
     seen = set()
     while todo:
         path = todo.pop()
@@ -62,14 +63,14 @@ def _smoke_helpers():
 
 
 SOURCES = sorted((REPO / "fqtool_tpu_torch").rglob("*.py")) \
-    + [REPO / "chip_smoke.py"] + _smoke_helpers()
+    + SCRIPTS + _smoke_helpers()
 
 
 def test_the_scan_sees_the_port_and_the_smoke_helpers():
     rel = {str(p.relative_to(REPO)) for p in SOURCES}
     assert {"fqtool_tpu_torch/main.py", "fqtool_tpu_torch/config/cli.py",
             "fqtool_tpu_torch/io/fastq.py", "fqtool_tpu_torch/host/tracing.py",
-            "chip_smoke.py", "tests/oracle.py", "tests/torch_pairs.py",
+            "chip_smoke.py", "overlap_ab.py", "tests/oracle.py", "tests/torch_pairs.py",
             "tests/torch_reads.py"} <= rel
     bad = ast.parse("import fqtool_tpu.ops\nfrom jax import numpy\n"
                     "importlib.import_module('fqtool_tpu.config')\n")

@@ -4,8 +4,8 @@ on its own: it imports nothing of the JAX package ``fqtool_tpu``.
 A subprocess installs an import hook that refuses ``jax``, ``jaxlib``,
 ``fqtool_tpu`` and ``fqtool_tpu.*`` (not ``fqtool_tpu_torch``), then runs the
 port's CLI on a small paired or single-end input on the CPU, imports
-``chip_smoke`` (and with it everything the smoke run uses), and checks that
-none of them was loaded on the way.
+``chip_smoke`` and ``overlap_ab`` (and with them everything the smoke run and
+the kernel A/B use), and checks that none of them was loaded on the way.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ sys.meta_path.insert(0, NoJax())
 from fqtool_tpu_torch.main import main
 rc = main(sys.argv[1:])
 import chip_smoke
+import overlap_ab
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 sys.exit(rc)

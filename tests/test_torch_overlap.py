@@ -118,7 +118,7 @@ def test_reverse_complement():
 
 def test_vector_width_follows_pointer_and_row_width():
     vw = overlap_cuda.vector_width
-    assert [vw(256, w) for w in (160, 152, 148, 151, 37)] == [16, 8, 1, 1, 1]
+    assert [vw(256, w) for w in (160, 152, 148, 151, 37)] == [8, 8, 1, 1, 1]
     assert [vw(256 + 8, 160), vw(256 + 4, 160), vw(256 + 2, 160)] == [8, 1, 1]
 
 

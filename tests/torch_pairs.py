@@ -61,7 +61,7 @@ _PRE_IMAGES = {c: np.flatnonzero(_COMP_FULL[_EDGE_BYTES] == c)
 
 # the overlap edge cases (tests/test_torch_overlap.py on the CPU, chip_smoke.py
 # phase 3 on the card): (l1, l2, diff_limit, require, random bytes past the
-# lengths); widths unpadded, so the kernel loads bytewise, except 48/64 (16
+# lengths); widths unpadded, so the kernel loads bytewise, except 48/64 (8
 # bytes at once)
 OVERLAP_EDGE_CASES = [
     (37, 37, 5, 10, False), (37, 37, 60, 10, True), (50, 50, 0, 30, False),
