@@ -15,26 +15,44 @@ Phases, each of which stops the run with a nonzero exit on failure:
    20 launches), the wrapper's and the plain version's CUDA-event times, and
    the bound: bytes at 3.35 TB/s against the byte compares this input needs
    at four per 32-bit op;
-4. the paired-end main path: 1,000,000 synthetic 2x151 bp pairs through
-   ``fqtool_tpu_torch.main`` on cuda with ``-q -f 3 -t 2`` and every output
-   stream; the kernel's launch counter must cover every chunk.  The run is
-   traced with torch.profiler (device activity only), which gives the
-   card's busy time against the run's wall and the kernels that fill it;
+4. the paired-end main path pe_qualtrim: 1,000,000 synthetic 2x151 bp
+   pairs through ``fqtool_tpu_torch.main`` on cuda with ``-q -f 3 -t 2`` and
+   every output stream; the kernel's launch counter must cover every chunk.
+   The run is traced with torch.profiler (device activity only), which
+   gives the card's busy time against the run's wall and the kernels that
+   fill it, beside the host stage split;
 5. the first 50,000 of those pairs once on cuda and once on the CPU (plain
    versions): records byte-identical, reports equal under compare_json;
-6. the single-end ops (polyG, polyX, adapter trimming, k-mers, duplication
+6. the paired-end ops (duplication keys, the swapped polyG, base
+   correction and pair merging fed by the overlap analysis, and
+   ``pe_pipeline`` with every stage, without and with the merge) on the
+   card against the same ops on the CPU, exact, at 16,384 pairs of 151 bp
+   and at widths 40 and 300; then each timed per 16,384 x 151 chunk (CUDA
+   events; torch.profiler busy ms and activity count);
+7. the paired-end main paths pe_merge_corr (``-m --merge_output -c``, with
+   the unpaired and failed streams) and pe_full (``-q --kmer --kmer_length 6
+   -d -a --detect_pe_adapter``) on 1,000,000 pairs whose reads run past the
+   insert into the TruSeq adapters, each traced as phase 4; the overlap
+   kernel must launch twice a chunk with the merge and once without;
+8. the first 50,000 of those pairs once on cuda and once on the CPU for
+   eight argv sets (both configurations, the paired-end sets of
+   tests/test_golden_random.py, --discard_unmerged, per-read UMI with split
+   output whose files rotate in both mates, and interleaved input alone and
+   with -q -c -a): every output file byte-identical, reports equal;
+9. the single-end ops (polyG, polyX, adapter trimming, k-mers, duplication
    keys) on the card against the same ops on the CPU, exact, at 65,536
    reads of 151 bp and at widths 40 and 300; then every single-end
    pipeline op and the whole ``se_pipeline`` timed per 65,536 x 151 chunk
    with CUDA events;
-7. the single-end main path: 2,000,000 synthetic 151 bp reads with
+10. the single-end main path: 2,000,000 synthetic 151 bp reads with
    se_qualtrim (``-q -f 3 -t 2``) and 1,000,000 with every single-end
    stage, each traced as phase 4;
-8. the first 50,000 of those reads once on cuda and once on the CPU for
+11. the first 50,000 of those reads once on cuda and once on the CPU for
    four argv sets: every output file byte-identical, reports equal; the
    split run reads packs of 500, so records reach every split file.
 
-The second-to-last line is the kernel table as JSON, the last line
+The second-to-last line is the kernel table as JSON (the overlap kernel's
+launches summed over the three paired-end main paths), the last line
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 ``python3 chip_smoke.py`` (``--pairs``/``--subset``/``--reads`` shrink the
 main-path phases).
@@ -43,6 +61,7 @@ main-path phases).
 from __future__ import annotations
 
 import argparse
+import gzip
 import itertools
 import json
 import os
@@ -65,16 +84,22 @@ from fqtool_tpu_torch.host import native, tracing  # noqa: E402
 from fqtool_tpu_torch.main import main as cli_main  # noqa: E402
 from fqtool_tpu_torch.ops import adapter as se_adapter  # noqa: E402
 from fqtool_tpu_torch.ops import common as se_common  # noqa: E402
+from fqtool_tpu_torch.ops import correct as pe_correct  # noqa: E402
 from fqtool_tpu_torch.ops import dup as se_dup  # noqa: E402
 from fqtool_tpu_torch.ops import filters as se_filters  # noqa: E402
-from fqtool_tpu_torch.ops import overlap, overlap_cuda  # noqa: E402
+from fqtool_tpu_torch.ops import merge as pe_merge  # noqa: E402
+from fqtool_tpu_torch.ops import overlap, overlap_cuda, overlap_select  # noqa: E402
 from fqtool_tpu_torch.ops import polyx as se_polyx  # noqa: E402
 from fqtool_tpu_torch.ops import qualcut as se_qualcut  # noqa: E402
 from fqtool_tpu_torch.ops import stats as se_stats  # noqa: E402
+from fqtool_tpu_torch.pipeline import pe as pe_pipe  # noqa: E402
 from fqtool_tpu_torch.pipeline import se as se_pipe  # noqa: E402
+from fqtool_tpu_torch.pipeline.pe_runner import pipeline_args  # noqa: E402
 from tests.oracle import compare_json, diff_fastq, read_fastq  # noqa: E402
-from tests.torch_pairs import (OVERLAP_EDGE_CASES, edge_pairs,  # noqa: E402
-                               kernel_params_se, make_pairs, write_pairs)
+from tests.torch_pairs import (ADAPTER_R1, ADAPTER_R2,  # noqa: E402
+                               OVERLAP_EDGE_CASES, _options, edge_pairs,
+                               kernel_params_se, make_pairs, planted_pairs,
+                               write_pairs)
 from tests.torch_reads import ADAPTER, make_reads, write_reads  # noqa: E402
 
 PE_CHUNK = 16384
@@ -289,36 +314,46 @@ def _device_busy(prof) -> tuple:
     return busy_us / 1e3, top
 
 
+def _traced(tag: str, run):
+    """Run ``run()`` under torch.profiler (device activity only) with the
+    host stage trace reset; print the host stage split, the card's busy ms
+    against the wall, the idle share and the six names that took the most
+    device time.  Returns (wall seconds, what ``run`` returned)."""
+    tracing.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log(f"{tag} host stage split: " + json.dumps(tracing.snapshot(), sort_keys=True))
+    busy_ms, top = _device_busy(prof)
+    if busy_ms > 0:
+        log(f"{tag} on the card (torch.profiler): {busy_ms:.3f} ms busy of "
+            f"{wall * 1e3:.3f} ms wall, idle share {1 - busy_ms / (wall * 1e3):.4f}; "
+            "top device time (ms): "
+            + json.dumps([[n, round(ms, 3)] for n, ms in top]))
+    else:
+        log(f"{tag} on the card: device time not measured "
+            "(torch.profiler recorded no device activity)")
+    return wall, result
+
+
 def phase_main(work: Path, pairs: int) -> tuple:
     r1, r2 = work / "r1.fq", work / "r2.fq"
     t0 = time.perf_counter()
     write_pairs(r1, r2, pairs, seed=2024)
     log(f"generated {pairs} pairs of 2x151 bp in {time.perf_counter() - t0:.3f} s")
-    tracing.reset()
     overlap_cuda.launches = 0
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = _run_cli(work, r1, r2, "cuda", "cuda_full")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    wall, out = _traced("pe_qualtrim",
+                        lambda: _run_cli(work, r1, r2, "cuda", "cuda_full"))
     launches = overlap_cuda.launches
     chunks = -(-pairs // PE_CHUNK)
     rep = json.loads(out["json"].read_text())
     ins = rep["InsertSize"]
-    log(f"main path: {pairs} pairs in {wall:.3f} s = {pairs / wall:.1f} pairs/s; "
-        f"overlap kernel launches {launches} for {chunks} chunks; "
+    log(f"pe_qualtrim main path: {pairs} pairs in {wall:.3f} s = {pairs / wall:.1f} "
+        f"pairs/s; overlap kernel launches {launches} for {chunks} chunks; "
         f"insert-size peak {ins['Peak']}, unknown {ins['Unknown']}")
-    log("host stage split: " + json.dumps(tracing.snapshot(), sort_keys=True))
-    busy_ms, top = _device_busy(prof)
-    if busy_ms > 0:
-        log(f"main path on the card (torch.profiler): {busy_ms:.3f} ms busy of "
-            f"{wall * 1e3:.3f} ms wall, idle share {1 - busy_ms / (wall * 1e3):.4f}; "
-            "top device time (ms): "
-            + json.dumps([[n, round(ms, 3)] for n, ms in top]))
-    else:
-        log("main path on the card: device time not measured "
-            "(torch.profiler recorded no device activity)")
     if launches < chunks:
         raise SystemExit(f"the main path launched the overlap kernel {launches} "
                          f"times for {chunks} chunks")
@@ -351,6 +386,252 @@ def phase_subset(work: Path, r1: Path, r2: Path, subset: int) -> None:
     if d:
         raise SystemExit(f"cuda and cpu reports differ: {d[:10]}")
     log("subset reports equal under compare_json")
+
+# ---------------------------------------------------------------------------
+# paired-end correction, merge, adapters and the paired-end forms of the
+# single-end stages
+AD_PE = ["--adapter_of_read1", ADAPTER_R1.decode(),
+         "--adapter_of_read2", ADAPTER_R2.decode()]
+MERGE = ["-m", "--merge_output", "merged.fq.gz"]
+PE_OUTS = ["--unpaired_read1", "up1.fq.gz", "--unpaired_read2", "up2.fq.gz",
+           "--failed_out", "failed.fq.gz"]
+# bench.py's two paired-end configurations beyond quality trimming
+PE_MERGE_CORR = MERGE + ["-c"]
+PE_FULL = ["-q", "--kmer", "--kmer_length", "6", "-d", "-a", "--detect_pe_adapter"]
+# every paired-end stage, with and without the merge, for pe_pipeline
+PE_EVERY = ["-q", "-g", "-x", "-c", "-a", *AD_PE, "-d", "--kmer", "--kmer_length",
+            "6", "-u", "--umi_location", "6", "--umi_length", "8"]
+# the 50 k-pair cuda-vs-cpu subsets: name -> (flags, interleaved input);
+# interleaved input takes no -O and -m needs -I (config/cli.py:201-205), and
+# -a needs its sequences there (the PE adapter scan would open the absent -I)
+PE_SUBSETS = {
+    "pe_merge_corr": (PE_MERGE_CORR + PE_OUTS, False),
+    "pe_full": (PE_FULL, False),
+    "pe_random_all": (["-q", "-a", "-c", "-g"] + PE_OUTS, False),
+    "pe_random_merge": (MERGE + ["-c", "-x"], False),
+    "pe_discard_unmerged": (MERGE + ["--discard_unmerged", "-c"], False),
+    # per-read UMI (both mates shift), packs of 500 so that split files rotate
+    "pe_umi_split": (["-u", "--umi_location", "6", "--umi_length", "8", "-s",
+                      "--split_file_number", "4", "--max_item_in_pack", "500"], False),
+    "pe_interleaved": (PE_OUTS, True),
+    "pe_interleaved_corr_adapter": (["-q", "-c", "-a", *AD_PE] + PE_OUTS, True),
+}
+
+
+def _pe_params(flags):
+    """(p, p2, pipeline keywords) of a paired-end argv, as PairEndRunner
+    derives them."""
+    opt = _options(["-i", "r1.fq", "-I", "r2.fq", "-o", "o1.fq", "-O", "o2.fq",
+                    *flags])
+    return (opt.kernel_params(is_r2=False), opt.kernel_params(is_r2=True),
+            pipeline_args(opt))
+
+
+def _pe_case(B, L1, L2, seed) -> dict:
+    """Paired-end planes of ``planted_pairs`` (planted overlaps, inserts
+    shorter and longer than a read, Q2 substitutions, rows at lengths 0-3)
+    with UMI offsets within each length and an index-filter mask, as CPU
+    tensors."""
+    s1, q1, r1, s2, q2, r2 = planted_pairs(seed, B, L1, L2)
+    rng = np.random.default_rng(seed + 1000)
+    st1 = np.minimum(rng.integers(0, 9, B), r1).astype(np.int32)
+    st2 = np.minimum(rng.integers(0, 9, B), r2).astype(np.int32)
+    return {k: torch.as_tensor(v) for k, v in dict(
+        s1=s1, q1=q1, r1=r1, s2=s2, q2=q2, r2=r2, st1=st1, st2=st2,
+        keep=rng.random(B) < 0.95).items()}
+
+
+def _ov(t):
+    return overlap_select.analyze(t["s1"], t["r1"], t["s2"], t["r2"], 5, 30)
+
+
+def _pipeline(flags):
+    p, p2, kw = _pe_params(flags)
+    return lambda t: pe_pipe.pe_pipeline(
+        t["s1"], t["q1"], t["r1"], t["s2"], t["q2"], t["r2"], t["st1"], t["st2"],
+        t["keep"], p=p, p2=p2, **kw)
+
+
+# the paired-end ops held cuda against cpu: name -> f(planes)
+PE_OPS = {
+    "dup_keys_pe[12]": lambda t: se_dup.dup_keys_pe(t["s1"], t["r1"], t["s2"],
+                                                    t["r2"], 12),
+    "dup_keys_pe[17]": lambda t: se_dup.dup_keys_pe(t["s1"], t["r1"], t["s2"],
+                                                    t["r2"], 17),
+    # -g's defaults with the paired-end argument swap (pipeline/pe.py stage 5)
+    "trim_polyg[PE argument swap]": lambda t: se_polyx.trim_polyg(
+        t["s1"], t["r1"], compare_req=1, max_mismatch=10, each=10),
+    "correct_by_overlap": lambda t: pe_correct.correct_by_overlap(
+        t["s1"], t["q1"], t["r1"], t["s2"], t["q2"], t["r2"], _ov(t), t["keep"]),
+    "merge_pairs": lambda t: pe_merge.merge_pairs(
+        t["s1"], t["q1"], t["r1"], t["s2"], t["q2"], t["r2"], _ov(t)),
+    "pe_pipeline[every stage]": _pipeline(PE_EVERY),
+    "pe_pipeline[every stage, merge]": _pipeline(PE_EVERY + MERGE),
+}
+
+
+def _flat(x) -> list:
+    """(name, tensor or None) of an op's output: a dict key by key, a
+    NamedTuple field by field."""
+    if isinstance(x, dict):
+        return [(f"{k}.{n}", v) for k in sorted(x) for n, v in _flat(x[k])]
+    if isinstance(x, tuple):
+        return [(f, v) for f, v in zip(x._fields, x)]
+    return [("", x)]
+
+
+def phase_pe_ops(dev: str = "cuda") -> None:
+    cases = [(PE_CHUNK, 151, 151), (PE_CHUNK // 4, 40, 40), (PE_CHUNK // 8, 300, 300)]
+    for k, (B, L1, L2) in enumerate(cases):
+        cpu = _pe_case(B, L1, L2, seed=500 + k)
+        gpu = {n: v.to(dev) for n, v in cpu.items()}
+        for name, fn in PE_OPS.items():
+            got, ref = _flat(fn(gpu)), _flat(fn(cpu))
+            torch.cuda.synchronize()
+            if [n for n, _ in got] != [n for n, _ in ref]:
+                raise SystemExit(f"{name}: outputs differ in names between devices")
+            for (field, a), (_, b) in zip(got, ref):
+                if (a is None) != (b is None):
+                    raise SystemExit(f"{name}.{field}: None on one device only")
+                if a is None:
+                    continue
+                a, b = a.cpu().numpy(), b.numpy()
+                err = (int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+                       if a.size and a.shape == b.shape else 0)
+                if a.dtype != b.dtype or a.shape != b.shape or err:
+                    raise SystemExit(
+                        f"{name}.{field} B={B} L={L1}/{L2}: cuda {a.dtype}{a.shape} "
+                        f"vs cpu {b.dtype}{b.shape}, max |err| {err}")
+        log(f"paired-end ops cuda vs cpu B={B} L={L1}/{L2}: {len(PE_OPS)} ops "
+            "equal, every output (tolerance 0: integer outputs)")
+
+    t = {n: v.to(dev) for n, v in _pe_case(PE_CHUNK, 151, 151, seed=600).items()}
+    timed = {"overlap_select.analyze": _ov, **PE_OPS,
+             "pe_pipeline[pe_merge_corr]": _pipeline(PE_MERGE_CORR),
+             "pe_pipeline[pe_full]": _pipeline(PE_FULL)}
+    ms = {name: round(_time_ms(lambda: fn(t)), 4) for name, fn in timed.items()}
+    log("paired-end op ms per 16384 x 151 chunk (CUDA events, 20 launches): "
+        + json.dumps(ms))
+    log("paired-end op device ms and device activities (kernels, copies) per "
+        "16384 x 151 chunk (torch.profiler, one call): "
+        + json.dumps({name: _device_ms(lambda: fn(t)) for name, fn in timed.items()}))
+
+
+def _run_pe_cli(work: Path, tag: str, inputs, flags, device: str) -> Path:
+    """Run the port's paired-end CLI in ``work/tag`` on ``inputs`` (two
+    files, or one interleaved file); returns that directory."""
+    d = work / tag
+    d.mkdir()
+    if len(inputs) == 2:
+        argv = ["-i", str(inputs[0]), "-I", str(inputs[1]), "-o", "o1.fq.gz",
+                "-O", "o2.fq.gz"]
+    else:
+        argv = ["-i", str(inputs[0]), "--in_fq_interleaved", "-o", "o1.fq.gz"]
+    argv += [*flags, "-J", "report.json", "-H", "report.html"]
+    os.environ["FQTOOL_TPU_TORCH_DEVICE"] = device
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        rc = cli_main(argv)
+    finally:
+        os.chdir(cwd)
+    if rc != 0:
+        raise SystemExit(f"fqtool_tpu_torch.main {' '.join(argv)} returned {rc} "
+                         f"on {device}")
+    return d
+
+
+def phase_pe_main(work: Path, pairs: int) -> tuple:
+    """pe_merge_corr and pe_full on the same pairs, whose reads run past the
+    insert into the TruSeq adapters; returns the inputs and the overlap
+    kernel's launches of both runs."""
+    r1, r2 = work / "a1.fq", work / "a2.fq"
+    t0 = time.perf_counter()
+    write_pairs(r1, r2, pairs, seed=2026, adapters=True)
+    log(f"generated {pairs} pairs of 2x151 bp with adapters past the insert in "
+        f"{time.perf_counter() - t0:.3f} s")
+    chunks = -(-pairs // PE_CHUNK)
+    total = 0
+    for tag, flags, calls in (("pe_merge_corr", PE_MERGE_CORR + PE_OUTS, 2),
+                              ("pe_full", PE_FULL, 1)):
+        overlap_cuda.launches = 0
+        wall, d = _traced(tag, lambda: _run_pe_cli(work, tag, (r1, r2), flags, "cuda"))
+        launches = overlap_cuda.launches
+        total += launches
+        rep = json.loads((d / "report.json").read_text())
+        log(f"{tag} main path: {pairs} pairs in {wall:.3f} s = {pairs / wall:.1f} "
+            f"pairs/s ({' '.join(flags)}); overlap kernel launches {launches} for "
+            f"{chunks} chunks")
+        if launches != calls * chunks:
+            raise SystemExit(f"{tag}: {launches} overlap kernel launches, "
+                             f"{calls * chunks} expected ({calls} a chunk)")
+        before = rep["Summary"]["BeforeFiltering"]["TotalReads"]
+        if before != 2 * pairs:
+            raise SystemExit(f"{tag}: report counts {before} reads for {pairs} pairs")
+        if tag == "pe_merge_corr":
+            with gzip.open(d / "merged.fq.gz", "rb") as f:
+                merged = f.read().count(b"_merged_")
+            corrected = rep["FilterResult"]["CorrectedBases"]
+            log(f"{tag}: {merged} merged pairs, {corrected} corrected bases in "
+                f"{rep['FilterResult']['CorrectedReads']} reads")
+            if not (merged > 0 and corrected > 0):
+                raise SystemExit(f"{tag}: merged {merged} pairs and corrected "
+                                 f"{corrected} bases")
+        else:
+            ad = rep.get("AdapterTrim") or {}
+            log(f"{tag}: pre-pass detected read1 adapter "
+                f"{ad.get('Read1AdapterSequence')!r}, read2 adapter "
+                f"{ad.get('Read2AdapterSequence')!r}; adapter-trimmed reads "
+                f"{ad.get('AdapterTrimmedReads')}")
+            kmers = rep["Read1BeforeFiltering"].get("KmerCount")
+            if not (ad and rep.get("Duplication")
+                    and sum(rep["Duplication"]["Histogram"]) > 0 and kmers):
+                raise SystemExit(f"{tag}: AdapterTrim, Duplication or k-mer "
+                                 "section empty")
+    return r1, r2, total
+
+
+def _interleave(s1: Path, s2: Path, dst: Path) -> Path:
+    """One FASTQ file holding read1 then read2 of each pair."""
+    with open(s1, "rb") as f1, open(s2, "rb") as f2, open(dst, "wb") as g:
+        for rec1, rec2 in zip(itertools.zip_longest(*[f1] * 4),
+                              itertools.zip_longest(*[f2] * 4)):
+            g.writelines(rec1 + rec2)
+    return dst
+
+
+def phase_pe_subsets(work: Path, r1: Path, r2: Path, subset: int) -> None:
+    s1, s2 = _head(r1, work / "as1.fq", subset), _head(r2, work / "as2.fq", subset)
+    inter = _interleave(s1, s2, work / "as_inter.fq")
+    for tag, (flags, interleaved) in PE_SUBSETS.items():
+        inputs = (inter,) if interleaved else (s1, s2)
+        gpu = _run_pe_cli(work, f"sub_{tag}_cuda", inputs, flags, "cuda")
+        t0 = time.perf_counter()
+        cpu = _run_pe_cli(work, f"sub_{tag}_cpu", inputs, flags, "cpu")
+        secs = time.perf_counter() - t0
+        names = sorted(p.name for p in gpu.glob("*.fq.gz"))
+        if names != sorted(p.name for p in cpu.glob("*.fq.gz")):
+            raise SystemExit(f"{tag}: cuda and cpu wrote different files")
+        counts, filled = [], {}
+        for name in names:
+            a, b = read_fastq(gpu / name), read_fastq(cpu / name)
+            d = diff_fastq(a, b)
+            if d:
+                raise SystemExit(f"{tag} {name}: cuda and cpu records differ: {d}")
+            counts.append(f"{name} {len(a)}")
+            mate = name.rsplit(".", 3)[-3]  # o1 / o2 of a split file
+            filled[mate] = filled.get(mate, 0) + bool(a)
+        if "-s" in flags and not (filled.get("o1", 0) >= 2 and filled.get("o2", 0) >= 2):
+            raise SystemExit(f"{tag}: records reached {filled} split files: the "
+                             "rotation between files went unchecked")
+        d = compare_json(json.loads((gpu / "report.json").read_text()),
+                         json.loads((cpu / "report.json").read_text()))
+        if d:
+            raise SystemExit(f"{tag}: cuda and cpu reports differ: {d[:10]}")
+        log(f"subset {tag} ({subset} pairs{', interleaved' if interleaved else ''}; "
+            f"CPU run {secs:.3f} s): records identical on cuda and cpu "
+            f"({', '.join(counts)}); reports equal")
+
 
 SE_CHUNK = 65536
 SE_QUALTRIM = ["-q", "-f", "3", "-t", "2"]
@@ -469,10 +750,10 @@ def phase_se_ops(dev: str = "cuda") -> None:
                       for name, fn in timed.items()}))
 
 
-def _device_ms(fn) -> list:
-    """[busy ms, activity count] of one traced call of ``fn`` on the card: an
-    op whose CUDA-event time is far above its busy time waits on its host
-    launches."""
+def _device_ms(fn):
+    """[busy ms, activity count] of one traced call of ``fn`` on the card, or
+    None when the profiler recorded no device activity: an op whose
+    CUDA-event time is far above its busy time waits on its host launches."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -481,7 +762,7 @@ def _device_ms(fn) -> list:
         torch.cuda.synchronize()
     busy_ms, _ = _device_busy(prof)
     n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
-    return [round(busy_ms, 4), n]
+    return [round(busy_ms, 4), n] if n else None
 
 
 def _run_se_cli(work: Path, fq: Path, flags, device: str, tag: str) -> Path:
@@ -520,26 +801,10 @@ def phase_se_main(work: Path, reads: int) -> Path:
     for tag, src, n, flags in (
             ("se_qualtrim", fq, reads, SE_QUALTRIM + ["--failed_out", "failed.fq.gz"]),
             ("se_all", half, reads // 2, SE_ALL + ["--failed_out", "failed.fq.gz"])):
-        tracing.reset()
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            d = _run_se_cli(work, src, flags, "cuda", tag)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        wall, d = _traced(tag, lambda: _run_se_cli(work, src, flags, "cuda", tag))
         rep = json.loads((d / "report.json").read_text())
         log(f"{tag} main path: {n} reads in {wall:.3f} s = {n / wall:.1f} reads/s "
             f"({' '.join(flags)})")
-        log(f"{tag} host stage split: " + json.dumps(tracing.snapshot(), sort_keys=True))
-        busy_ms, top = _device_busy(prof)
-        if busy_ms > 0:
-            log(f"{tag} on the card (torch.profiler): {busy_ms:.3f} ms busy of "
-                f"{wall * 1e3:.3f} ms wall, idle share "
-                f"{1 - busy_ms / (wall * 1e3):.4f}; top device time (ms): "
-                + json.dumps([[name, round(t, 3)] for name, t in top]))
-        else:
-            log(f"{tag} on the card: device time not measured "
-                "(torch.profiler recorded no device activity)")
         before = rep["Summary"]["BeforeFiltering"]["TotalReads"]
         fr = rep["FilterResult"]
         if before != n or not 0 < fr["PassedFilterReads"] <= n:
@@ -607,6 +872,10 @@ def main() -> int:
     try:
         r1, r2, launches = phase_main(work, args.pairs)
         phase_subset(work, r1, r2, min(args.subset, args.pairs))
+        phase_pe_ops()
+        a1, a2, pe_launches = phase_pe_main(work, args.pairs)
+        launches += pe_launches
+        phase_pe_subsets(work, a1, a2, min(args.subset, args.pairs))
         phase_se_ops()
         fq = phase_se_main(work, args.reads)
         phase_se_subset(work, fq, min(args.subset, args.reads))

@@ -3,9 +3,9 @@
 Both CLIs run in-process on the same inputs with the same argv; every
 output stream must hold the same records and the JSON reports must agree
 under ``compare_json``.  The port runs on the CPU here
-(``FQTOOL_TPU_TORCH_DEVICE=cpu``); on paired-end input the flags of stages
-it does not run yet exit with 255, and asking for CUDA where there is none
-is an error.  ``test_torch_se_cli.py`` covers the single-end options.
+(``FQTOOL_TPU_TORCH_DEVICE=cpu``); multi-host runs exit with 255, and asking
+for CUDA where there is none is an error.  ``test_torch_se_cli.py`` covers
+the single-end options, ``test_torch_pe_cli*.py`` the paired-end stages.
 """
 
 from __future__ import annotations
@@ -44,17 +44,36 @@ def _run(main, argv, workdir: Path) -> int:
         os.chdir(cwd)
 
 
+def _run_both(tmp_path: Path, argv, monkeypatch, stdin: Path = None) -> dict:
+    """Run both CLIs in ``tmp_path/jax`` and ``tmp_path/torch`` (``stdin``
+    feeds /dev/stdin); returns each one's exit code, an argparse exit
+    counting as its code."""
+    from fqtool_tpu.main import main as jax_main
+    from fqtool_tpu_torch.main import main as torch_main
+    monkeypatch.setenv("FQTOOL_TPU_TORCH_DEVICE", "cpu")
+    rcs = {}
+    for name, main in (("jax", jax_main), ("torch", torch_main)):
+        with open(stdin or os.devnull, "rb") as fh:
+            monkeypatch.setattr(sys, "stdin", io.TextIOWrapper(fh))
+            try:
+                rcs[name] = _run(main, argv, tmp_path / name)
+            except SystemExit as e:
+                rcs[name] = e.code
+    return rcs
+
+
 def _compare(tmp_path: Path, argv, monkeypatch, stdin: Path = None):
     """Run both CLIs (``stdin`` feeds /dev/stdin) and compare every
     ``*.fq.gz`` output and the JSON reports; returns (report, output names,
     record count)."""
-    from fqtool_tpu.main import main as jax_main
-    from fqtool_tpu_torch.main import main as torch_main
-    monkeypatch.setenv("FQTOOL_TPU_TORCH_DEVICE", "cpu")
-    for name, main in (("jax", jax_main), ("torch", torch_main)):
-        with open(stdin or os.devnull, "rb") as fh:
-            monkeypatch.setattr(sys, "stdin", io.TextIOWrapper(fh))
-            assert _run(main, argv, tmp_path / name) == 0, name
+    rcs = _run_both(tmp_path, argv, monkeypatch, stdin)
+    assert rcs == {"jax": 0, "torch": 0}, rcs
+    return _compare_outputs(tmp_path)
+
+
+def _compare_outputs(tmp_path: Path):
+    """Compare the outputs of both runs of ``_run_both``; returns (report,
+    output names, record count)."""
     outputs = sorted(p.name for p in (tmp_path / "jax").glob("*.fq.gz"))
     assert outputs == sorted(p.name for p in (tmp_path / "torch").glob("*.fq.gz"))
     n = 0
@@ -86,33 +105,6 @@ def test_cli_random_shapes(tmp_path, monkeypatch):
                              "-q", "--enable_cut_front", "--enable_cut_tail",
                              "-l", "--max_length", "140", "-y", "-F", "2"),
              monkeypatch)
-
-
-# (flags, the flag the refusal names): bundled short flags and shortened long
-# names are refused as what they parse to
-REFUSED = [
-    (["-m", "--merge_output", "m.fq"], "-m"), (["--discard_unmerged"], None),
-    (["-c"], None), (["-a"], None), (["--adapter_of_read1", "ACGT"], None),
-    (["--adapter_of_read2", "ACGT"], None), (["--detect_pe_adapter"], None),
-    (["-g"], None), (["-x"], None), (["--kmer"], None), (["-d"], None),
-    (["-u"], None), (["-s"], None), (["-S"], None), (["--in_fq_interleaved"], None),
-    (["-qu", "--umi_location", "1", "--umi_length", "8"], "-u"),
-    (["-qa"], "-a"), (["-qd"], "-d"), (["-qg"], "-g"),
-    (["--detect_pe"], "--detect_pe_adapter"),
-]
-
-
-@pytest.mark.parametrize("flags,named", REFUSED,
-                         ids=[f[0] for f, _ in REFUSED])
-def test_refused_flag_exits_255(tmp_path, flags, named, capsys, monkeypatch):
-    from fqtool_tpu_torch.main import main
-    monkeypatch.setenv("FQTOOL_TPU_TORCH_DEVICE", "cpu")
-    write_pairs(tmp_path / "r1.fq", tmp_path / "r2.fq", 10, seed=1)
-    rc = _run(main, _argv(tmp_path / "r1.fq", tmp_path / "r2.fq", *flags), tmp_path)
-    assert rc == 255
-    msg = f"not yet ported in fqtool_tpu_torch: {named or flags[0]}\n"
-    assert capsys.readouterr().err.endswith(msg)
-    assert not (tmp_path / "o1.fq.gz").exists()
 
 
 def test_single_end_runs(tmp_path, monkeypatch):

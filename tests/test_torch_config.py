@@ -20,7 +20,10 @@ from fqtool_tpu.config import options as joptions
 from fqtool_tpu_torch.config import cli as tcli
 from fqtool_tpu_torch.config import options as toptions
 
-from .test_torch_cli import REFUSED, _argv
+from .test_torch_cli import _argv
+from .test_torch_pe_cli import FLAG_SETS as PE_FLAG_SETS
+from .test_torch_pe_cli_configs import CASES as PE_CLI_CASES
+from .test_torch_pe_cli_configs import INTERLEAVED
 from .test_torch_se_cli import CASES as SE_CLI_CASES
 from .torch_reads import ADAPTER
 
@@ -79,8 +82,11 @@ ARGVS = {
 }
 ARGVS.update({f"bench-{name}": argv for name, argv in _bench_configs()})
 ARGVS.update({f"se-cli-{name}": SE + flags for name, flags in SE_CLI_CASES.items()})
-ARGVS.update({f"refused{flags[0]}-{k}": _argv("r1.fq", "r2.fq", *flags)
-              for k, (flags, _) in enumerate(REFUSED)})
+ARGVS.update({f"pe-cli-{name}": _argv("r1.fq", "r2.fq", *flags)
+              for name, flags in {**PE_FLAG_SETS, **PE_CLI_CASES}.items()})
+ARGVS.update({f"pe-cli-interleaved-{name}": [
+    "-i", "inter.fq", "--in_fq_interleaved", "-o", "o1.fq.gz", *flags]
+    for name, flags in INTERLEAVED.items()})
 
 
 def _parse(cli, argv, capsys):

@@ -3,9 +3,10 @@ on its own: it imports nothing of the JAX package ``fqtool_tpu``.
 
 A subprocess installs an import hook that refuses ``jax``, ``jaxlib``,
 ``fqtool_tpu`` and ``fqtool_tpu.*`` (not ``fqtool_tpu_torch``), then runs the
-port's CLI on a small paired or single-end input on the CPU, imports
-``chip_smoke`` and ``overlap_ab`` (and with them everything the smoke run and
-the kernel A/B use), and checks that none of them was loaded on the way.
+port's CLI on a small paired or single-end input on the CPU (a paired-end
+run with every stage among them), imports ``chip_smoke`` and ``overlap_ab``
+(and with them everything the smoke run and the kernel A/B use), and checks
+that none of them was loaded on the way.
 """
 
 from __future__ import annotations
@@ -67,3 +68,12 @@ def test_port_single_end_runs_without_jax(tmp_path):
         ADAPTER.decode(), "-d", "--kmer", "--kmer_length", "6", "-u",
         "--umi_location", "3", "--umi_length", "8"])
     assert (tmp_path / "o.fq.gz").stat().st_size > 0
+
+
+def test_port_paired_end_all_stages_run_without_jax(tmp_path):
+    write_pairs(tmp_path / "r1.fq", tmp_path / "r2.fq", 500, seed=5, adapters=True)
+    _run_without_jax(tmp_path, [
+        "-i", "r1.fq", "-I", "r2.fq", "-o", "o1.fq.gz", "-O", "o2.fq.gz",
+        "-m", "--merge_output", "m.fq.gz", "-c", "-a", "-g", "-x", "-d",
+        "--kmer", "-u", "--umi_location", "6", "--umi_length", "8"])
+    assert (tmp_path / "m.fq.gz").stat().st_size > 0

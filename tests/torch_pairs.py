@@ -2,9 +2,10 @@
 
 Pairs are read from both ends of a random fragment whose length (the insert
 size) is drawn from about N(250, 75) and clipped to [60, 600], so most 2x151 bp
-pairs truly overlap and some run past the fragment into random bases (an
-adapter stand-in).  About 1% substitutions, a few N runs, and a quality
-profile that decays along the read.  numpy only: no JAX, no torch.
+pairs truly overlap and some run past the fragment: into random bases, or
+with ``adapters=True`` into the TruSeq adapters and then random bases.  About
+1% substitutions, a few N runs, and a quality profile that decays along the
+read.  numpy only: no JAX, no torch.
 """
 
 from __future__ import annotations
@@ -12,20 +13,36 @@ from __future__ import annotations
 import numpy as np
 
 _ACGT = np.frombuffer(b"ACGT", np.uint8)
+# the TruSeq adapters that follow the insert in read1 and read2
+ADAPTER_R1 = b"AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
+ADAPTER_R2 = b"AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT"
 _COMP = np.full(256, ord("N"), np.uint8)
 for _s, _d in zip(b"ACGTN", b"TGCAN"):
     _COMP[_s] = _d
 
 
-def make_pairs(n: int, seed: int, read_len: int = 151):
+def _past_insert(filler: np.ndarray, isize: np.ndarray, adapter: bytes):
+    """``filler`` with the adapter written from each row's insert end on."""
+    ad = np.frombuffer(adapter, np.uint8)
+    k = np.arange(filler.shape[1])[None, :] - isize[:, None]
+    return np.where((k >= 0) & (k < len(ad)), ad[np.clip(k, 0, len(ad) - 1)],
+                    filler)
+
+
+def make_pairs(n: int, seed: int, read_len: int = 151, adapters: bool = False):
     """Return (seq1, qual1, seq2, qual2, isize): uint8 [n, read_len] ASCII
-    planes and the int32 insert sizes they were cut from."""
+    planes and the int32 insert sizes they were cut from.  A read past its
+    insert reads random bases, or with ``adapters`` its TruSeq adapter first;
+    the random draws are the same either way."""
     rng = np.random.default_rng(seed)
     isize = np.clip(np.rint(rng.normal(250, 75, n)), 60, 600).astype(np.int32)
     frag = _ACGT[rng.integers(0, 4, (n, 600), dtype=np.uint8)]
     j = np.arange(read_len)[None, :]
     inside = j < isize[:, None]
     filler = _ACGT[rng.integers(0, 4, (2, n, read_len), dtype=np.uint8)]
+    if adapters:
+        filler = (_past_insert(filler[0], isize, ADAPTER_R1),
+                  _past_insert(filler[1], isize, ADAPTER_R2))
     seq1 = np.where(inside, frag[:, :read_len], filler[0])
     back = np.take_along_axis(frag, np.clip(isize[:, None] - 1 - j, 0, 599), axis=1)
     seq2 = np.where(inside, _COMP[back], filler[1])
@@ -44,6 +61,49 @@ def make_pairs(n: int, seed: int, read_len: int = 151):
         q[seq == ord("N")] = 2
         quals.append(q + 33)
     return seq1, quals[0], seq2, quals[1], isize
+
+
+def plant_low_quality(seq, qual, rng, rows_frac=0.5, most=3):
+    """On a fraction of the rows, up to ``most`` substitutions at quality
+    '#' (Q2): inside an overlap whose mate base is >= Q30 they are what the
+    base correction fixes, fewer than 5 a read so dead patch slots occur."""
+    B, L = seq.shape
+    for r in np.flatnonzero(rng.random(B) < rows_frac):
+        cols = rng.integers(0, L, int(rng.integers(1, most + 1)))
+        seq[r, cols] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, len(cols))]
+        qual[r, cols] = ord("#")
+
+
+def planted_pairs(seed: int, B: int, L1: int, L2: int):
+    """(seq1, qual1, rlen1, seq2, qual2, rlen2) of pairs read from both ends
+    of fragments 1/3 to 2x the wider read long (so inserts both shorter and
+    longer than a read occur at every width), read lengths up to the width
+    (~10% at 0-3), qualities mostly >= Q30 with up to 3 Q2 substitutions on
+    half of the reads, zero past each length."""
+    rng = np.random.default_rng(seed)
+    L = max(L1, L2)
+    isize = rng.integers(L // 3, 2 * L, B)
+    frag = _ACGT[rng.integers(0, 4, (B, 2 * L))]
+    j = np.arange(L)[None, :]
+    inside = j < isize[:, None]
+    back = np.take_along_axis(frag, np.clip(isize[:, None] - 1 - j, 0, 2 * L - 1), 1)
+    reads = (np.where(inside, frag[:, :L], _ACGT[rng.integers(0, 4, (B, L))]),
+             np.where(inside, _COMP[back], _ACGT[rng.integers(0, 4, (B, L))]))
+    out = []
+    for s, W in zip(reads, (L1, L2)):
+        s = s[:, :W].copy()
+        q = rng.integers(30, 42, (B, W)).astype(np.uint8) + 33
+        plant_low_quality(s, q, rng)
+        rlen = np.full(B, W, np.int32)
+        short = rng.random(B) < 0.3
+        rlen[short] = rng.integers(0, W + 1, short.sum())
+        tiny = rng.random(B) < 0.1
+        rlen[tiny] = rng.integers(0, 4, tiny.sum())
+        pad = np.arange(W)[None, :] >= rlen[:, None]
+        s[pad] = 0
+        q[pad] = 0
+        out += [s, q, rlen]
+    return out
 
 
 # read bytes of the overlap edge cases: both cases of ACGTN, and '.' and 'R',
@@ -179,16 +239,30 @@ def fastq_bytes(seq: np.ndarray, qual: np.ndarray, mate: int,
 
 
 def write_pairs(path1, path2, n: int, seed: int, read_len: int = 151,
-                block: int = 250_000) -> np.ndarray:
+                block: int = 250_000, adapters: bool = False) -> np.ndarray:
     """Write ``n`` pairs as plain FASTQ to ``path1``/``path2`` in blocks of
     ``block`` pairs (block k is seeded with ``seed + k``, so a prefix of the
-    stream is the same for any ``n``); returns the insert sizes."""
+    stream is the same for any ``n``); returns the insert sizes.
+    ``adapters`` as for ``make_pairs``."""
     sizes = []
     with open(path1, "wb") as f1, open(path2, "wb") as f2:
         for k, lo in enumerate(range(0, n, block)):
             m = min(block, n - lo)
-            s1, q1, s2, q2, isz = make_pairs(m, seed + k, read_len)
+            s1, q1, s2, q2, isz = make_pairs(m, seed + k, read_len, adapters)
             f1.write(fastq_bytes(s1, q1, 1, lo))
             f2.write(fastq_bytes(s2, q2, 2, lo))
             sizes.append(isz)
     return np.concatenate(sizes) if sizes else np.zeros(0, np.int32)
+
+
+def write_interleaved(path, n: int, seed: int, adapters: bool = False) -> None:
+    """Write the pairs of ``write_pairs(..., n, seed, adapters=adapters)`` to
+    one FASTQ file, read1 then read2 of each pair (``--in_fq_interleaved``)."""
+    s1, q1, s2, q2, _ = make_pairs(n, seed, 151, adapters)
+    r1 = fastq_bytes(s1, q1, 1, 0)
+    r2 = fastq_bytes(s2, q2, 2, 0)
+    w = len(r1) // max(n, 1)
+    with open(path, "wb") as f:
+        for i in range(n):
+            f.write(r1[i * w : (i + 1) * w])
+            f.write(r2[i * w : (i + 1) * w])
