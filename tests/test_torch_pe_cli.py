@@ -7,7 +7,7 @@ return the same exit code and, on 0, write the same records to every output
 stream and JSON reports equal under ``compare_json``.  The flag sets are
 those a paired-end run once refused, each with the companion flags its
 parser needs; the bare forms a parser rejects must be rejected alike.
-``test_torch_pe_cli_configs.py`` runs the driver configurations, UMI,
+``test_torch_pe_cli_configs.py`` runs the bench.py configurations, UMI,
 split output, interleaved input and stdin.
 """
 

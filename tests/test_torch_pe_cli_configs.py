@@ -1,5 +1,5 @@
 """Paired-end ``python -m fqtool_tpu_torch.main`` against ``fqtool_tpu.main``:
-the driver configurations, the paired-end sets of ``test_golden_random.py``,
+the bench.py configurations, the paired-end sets of ``test_golden_random.py``,
 UMI, split output, interleaved input and stdin.
 
 Both CLIs run in-process on the same input with the same argv; every output

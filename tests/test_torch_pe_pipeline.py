@@ -85,7 +85,7 @@ def assert_same_outputs(ref: dict, got: dict) -> None:
                 f"{name}: first diffs at {np.argwhere(a != b)[:5].tolist()}"
 
 
-# each stage alone, then the driver configurations and the CLI sets of the
+# each stage alone, then the bench.py configurations and the CLI sets of the
 # paired-end tests
 CASES = {
     "qualtrim": ["-q", "-f", "3", "-t", "2"],
