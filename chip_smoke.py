@@ -49,13 +49,24 @@ Phases, each of which stops the run with a nonzero exit on failure:
    stage, each traced as phase 4;
 11. the first 50,000 of those reads once on cuda and once on the CPU for
    four argv sets: every output file byte-identical, reports equal; the
-   split run reads packs of 500, so records reach every split file.
+   split run reads packs of 500, so records reach every split file;
+12. multi-host runs on the card (dist/multihost.py), every rank a
+   subprocess of this script (``--rank-main -- <argv>``) on cuda, all ranks
+   sharing the one card: the first 50,000 pairs of phase 7 with ``-s
+   --split_file_number 4 --max_item_in_pack 500 -q -c -d --ora`` as 2 ranks
+   whose kernel library is removed first (so both build it at once) against
+   a single-process cuda run; then pe_merge_corr and pe_full on phase 7's
+   pairs as 2 ranks and se_qualtrim on phase 10's reads as 4 ranks. Every
+   output file must be byte-identical to the single-process run's, the
+   reports equal, and the ranks' overlap kernel launches must sum to calls x
+   chunks. Prints each run's wall, rate, every rank's
+   ``FQTOOL_TPU_TIMING_JSON`` marks, stage split and busy ms on the card.
 
 The second-to-last line is the kernel table as JSON (the overlap kernel's
-launches summed over the three paired-end main paths), the last line
-``{"ok": true, "device": {...}}``.  Run from the repository root:
-``python3 chip_smoke.py`` (``--pairs``/``--subset``/``--reads`` shrink the
-main-path phases).
+launches summed over the three paired-end main paths and the paired-end
+ranks of phase 12), the last line ``{"ok": true, "device": {...}}``.  Run
+from the repository root: ``python3 chip_smoke.py`` (``--pairs``/``--subset``
+/``--reads`` shrink the main-path phases).
 """
 
 from __future__ import annotations
@@ -854,6 +865,155 @@ def phase_se_subset(work: Path, fq: Path, subset: int) -> None:
             f"identical on cuda and cpu ({', '.join(counts)}); reports equal")
 
 
+# ---------------------------------------------------------------------------
+# multi-host runs: ranks of one group, each a subprocess of this script
+MH_SPLIT = ["-s", "--split_file_number", "4", "--max_item_in_pack", "500", "-q", "-c",
+            "-d", "--ora"]
+
+
+def rank_main(argv) -> int:
+    """One rank of a multi-host run: the port's CLI under torch.profiler
+    (device activity only); prints its overlap kernel launches, host stage
+    split and busy ms on the card as the last line of its output."""
+    on_card = torch.device(os.environ["FQTOOL_TPU_TORCH_DEVICE"]).type == "cuda"
+    act = torch.profiler.ProfilerActivity
+    overlap_cuda.launches = 0
+    tracing.reset()
+    with torch.profiler.profile(activities=[act.CUDA if on_card else act.CPU]) as prof:
+        rc = cli_main(argv)
+        if on_card:
+            torch.cuda.synchronize()
+    busy_ms, _ = _device_busy(prof)
+    print(json.dumps({"launches": overlap_cuda.launches, "busy_ms": busy_ms,
+                      "stages": tracing.snapshot()}), flush=True)
+    return rc
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_ranks(d: Path, argv, nprocs: int, device: str) -> tuple:
+    """Run the port's CLI on ``argv`` as ``nprocs`` ranks of one group in
+    ``d``; returns (each rank's last-line dict with its timing file's
+    stamps under "timing", wall seconds from the first start to the last
+    exit).  Every rank is stopped before this returns."""
+    d.mkdir()
+    port = _free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(nprocs):
+            env = dict(os.environ, FQTOOL_TPU_TORCH_DEVICE=device,
+                       FQTOOL_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                       FQTOOL_TPU_REDUCE_PORT=str(port),
+                       FQTOOL_TPU_NPROCS=str(nprocs), FQTOOL_TPU_PROC_ID=str(rank),
+                       FQTOOL_TPU_TIMING_JSON=str(d.parent / f"{d.name}.timing{rank}.json"))
+            logs.append(open(d.parent / f"{d.name}.rank{rank}.err", "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-main", "--",
+                 *map(str, argv)], cwd=d, env=env, stdout=subprocess.PIPE,
+                stderr=logs[-1], text=True))
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        err = (d.parent / f"{d.name}.rank{rank}.err").read_text()
+        if p.returncode != 0:
+            raise SystemExit(f"{d.name}: rank {rank} of {nprocs} exited "
+                             f"{p.returncode}:\n{err[-3000:]}")
+        r = json.loads(out.strip().splitlines()[-1])
+        r["timing"] = json.loads((d.parent / f"{d.name}.timing{rank}.json").read_text())
+        ranks.append(r)
+    return ranks, wall
+
+
+def _same_outputs(tag: str, single: Path, multi: Path) -> list:
+    """Every output file of the multi-host run byte-identical to the
+    single-process run's, the reports equal; returns the file names."""
+    names = sorted(p.name for p in single.iterdir() if p.name.endswith((".fq", ".fq.gz")))
+    got = sorted(p.name for p in multi.iterdir() if p.name.endswith((".fq", ".fq.gz")))
+    if not names or names != got or list(multi.glob("*.part")):
+        raise SystemExit(f"{tag}: files {got} (parts {list(multi.glob('*.part'))}), "
+                         f"single-process run {names}")
+    for name in names:
+        if (single / name).read_bytes() != (multi / name).read_bytes():
+            raise SystemExit(f"{tag}: {name} differs from the single-process run")
+    d = compare_json(json.loads((multi / "report.json").read_text()),
+                     json.loads((single / "report.json").read_text()))
+    if d:
+        raise SystemExit(f"{tag}: reports differ from the single-process run: {d[:10]}")
+    return names
+
+
+def _log_ranks(tag: str, n: int, unit: str, ranks, wall: float) -> None:
+    """The run's wall and rate, and each rank's marks (seconds after its
+    run began), stage split and busy ms."""
+    t_begin = min(r["timing"]["t_run_begin"] for r in ranks)
+    run_wall = max(r["timing"]["t_done"] for r in ranks) - t_begin
+    busy = sum(r["busy_ms"] for r in ranks)
+    log(f"{tag} as {len(ranks)} ranks: {n} {unit} in {run_wall:.3f} s from the "
+        f"first rank's run start to the last rank's end = {n / run_wall:.1f} {unit}/s "
+        f"({wall:.3f} s with process start-up); busy on the card {busy:.3f} ms summed "
+        f"over ranks (idle share >= {1 - busy / (run_wall * 1e3):.4f})")
+    for k, r in enumerate(ranks):
+        t = r["timing"]
+        marks = {m: round(v - t["t_run_begin"], 3)
+                 for m, v in sorted(t["marks"].items(), key=lambda kv: kv[1])}
+        marks["done"] = round(t["t_done"] - t["t_run_begin"], 3)
+        top = sorted(r["stages"].items(), key=lambda kv: -kv[1]["seconds"])[:5]
+        log(f"{tag} rank {k}: started {t['t_run_begin'] - t_begin:.3f} s after the "
+            f"first; marks (s after its run began) {json.dumps(marks)}; overlap kernel "
+            f"launches {r['launches']}; busy {r['busy_ms']:.3f} ms; top stages (s) "
+            + json.dumps({name: v["seconds"] for name, v in top}))
+
+
+def phase_multihost(work: Path, a1: Path, a2: Path, pairs: int, fq: Path, reads: int,
+                    subset: int, device: str = "cuda") -> int:
+    """Phase 12; returns the overlap kernel launches of the paired-end ranks."""
+    total = 0
+    s1, s2 = work / "as1.fq", work / "as2.fq"  # phase 8's first pairs
+    single = _run_pe_cli(work, "mh_split_single", (s1, s2), MH_SPLIT, device)
+    # cold start: both ranks build the kernel library at once
+    shutil.rmtree(overlap_cuda.library_path().parent, ignore_errors=True)
+    runs = [("pe_split_ora", ["-i", s1, "-I", s2, "-o", "o1.fq.gz", "-O", "o2.fq.gz",
+                              *MH_SPLIT], single, 2, subset, "pairs", 1,
+             -(-subset // 500)),
+            *((tag, ["-i", a1, "-I", a2, "-o", "o1.fq.gz", "-O", "o2.fq.gz", *flags],
+               work / tag, 2, pairs, "pairs", calls, -(-pairs // PE_CHUNK))
+              for tag, flags, calls in (("pe_merge_corr", PE_MERGE_CORR + PE_OUTS, 2),
+                                        ("pe_full", PE_FULL, 1))),
+            ("se_qualtrim", ["-i", fq, "-o", "out.fq.gz", *SE_QUALTRIM,
+                             "--failed_out", "failed.fq.gz"],
+             work / "se_qualtrim", 4, reads, "reads", 0, 0)]
+    for tag, argv, ref, nprocs, n, unit, calls, chunks in runs:
+        argv = [*argv, "-J", "report.json", "-H", "report.html"]
+        ranks, wall = _run_ranks(work / f"mh_{tag}", argv, nprocs, device)
+        _log_ranks(tag, n, unit, ranks, wall)
+        names = _same_outputs(tag, ref, work / f"mh_{tag}")
+        launches = sum(r["launches"] for r in ranks)
+        log(f"{tag} as {nprocs} ranks: {len(names)} output files byte-identical to the "
+            f"single-process run ({', '.join(names)}), reports equal; overlap kernel "
+            f"launches {launches} for {chunks} chunks")
+        if device == "cuda" and (launches != calls * chunks or
+                                 (calls and not all(r["launches"] for r in ranks))):
+            raise SystemExit(f"{tag}: the ranks launched the overlap kernel "
+                             f"{[r['launches'] for r in ranks]} times, "
+                             f"{calls * chunks} in all expected ({calls} a chunk)")
+        total += launches
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--pairs", type=int, default=1_000_000)
@@ -879,6 +1039,8 @@ def main() -> int:
         phase_se_ops()
         fq = phase_se_main(work, args.reads)
         phase_se_subset(work, fq, min(args.subset, args.reads))
+        launches += phase_multihost(work, a1, a2, args.pairs, fq, args.reads,
+                                    min(args.subset, args.pairs))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     entry["launches"] = launches
@@ -890,4 +1052,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-main"]:
+        sys.exit(rank_main(sys.argv[3:] if sys.argv[2:3] == ["--"] else sys.argv[2:]))
     sys.exit(main())

@@ -1,15 +1,16 @@
 """Pair-end host runtime.
 
-Counterpart of ``fqtool_tpu/pipeline/pe_runner.py`` for a single host: drives
-the port's ``pe_pipeline`` over pair packs on one torch device and reproduces
-the output routing of ``PairEndProcessor::processPairEnd`` (reference:
+Counterpart of ``fqtool_tpu/pipeline/pe_runner.py``: drives the port's
+``pe_pipeline`` over pair packs on one torch device and reproduces the output
+routing of ``PairEndProcessor::processPairEnd`` (reference:
 src/peprocessor.cpp:261-508).  ``complete_pack``, the fold, the routing
 (merge, correction patches, adapter and polyG/polyX accounting), the record
-formatters and ``write_reports`` are copied from the JAX runner without its
-multi-host branches (deferred ORA sampling, global record numbering).
-``submit_pack`` slices each pack into the same device chunks as the JAX
-runner, uploads them and dispatches the pipeline, so records, split files
-and gzip framing match the JAX CLI byte for byte.
+formatters, the multi-host runs (``_run_mh``, ``_run_mh_split``, deferred ORA
+sampling and global record numbering; dist/multihost.py) and
+``write_reports`` are copied from the JAX runner.  ``submit_pack`` slices each
+pack into the same device chunks as the JAX runner, uploads them and
+dispatches the pipeline, so records, split files and gzip framing match the
+JAX CLI byte for byte.
 """
 
 from __future__ import annotations
@@ -28,11 +29,11 @@ from ..host.stats import StatsAccumulator
 from ..host.tracing import stage
 from ..host.umi import process_umi
 from ..io.fastq import (AsyncWriter, ReadPack, format_array_records,
-                        format_plane_array_records, prefetch_iter)
+                        format_plane_array_records)
 from ..ops.filters import PASS_FILTER
 from .pe import pe_pipeline_call
 from .runner import (_TAG_BUF, _TAG_LEN, _TAG_OFF, SplitWriter, chunk_rows,
-                     drain_pipelined, index_filter_matches, loginfo)
+                     drain_pipelined, index_filter_matches, loginfo, prefetched)
 
 # extended tag catalog: the fail-reason names plus the PE mate-fail tag
 _XTAG_BUF = _TAG_BUF + b"paired_read_is_failing"
@@ -145,7 +146,14 @@ class PairEndRunner:
         self._pre_counter = 0
         self._post1_counter = 0
         self._post2_counter = 0
+        # multi-host: post-filter ORA sampling deferred until global passing
+        # prefixes are known (host/ora_defer.py)
+        self._ora_post1_defer = None
+        self._ora_post2_defer = None
         self._rows = 0  # device batch size, locked at the first pack
+        # global stream index of the current pack's first pair (multi-host
+        # runs; None = single-host, dup table keeps its own local counter)
+        self._record_base = None
         self.args = pipeline_args(opt)
         self.adapter_r1 = self.args["adapter_r1"]
         self.adapter_r2 = self.args["adapter_r2"]
@@ -163,6 +171,11 @@ class PairEndRunner:
     # ------------------------------------------------------------------
     def run(self) -> None:
         opt = self.opt
+        from ..dist import multihost
+        mh = multihost.active()
+        if mh is not None:
+            self._run_mh(mh)
+            return
         split = SplitWriter(opt, paired=True) if opt.split.enabled else None
         w_out1 = (AsyncWriter(opt.out1, opt.compression)
                   if opt.out1 and not opt.split.enabled else None)
@@ -217,15 +230,9 @@ class PairEndRunner:
                         w.write(s)
 
         from ..io.headcache import iter_packs_paired_cached
-        it = prefetch_iter(iter_packs_paired_cached(
-            opt.in1, opt.in2, opt.interleaved_input,
-            pack_reads, opt.phred64))
-        while True:
-            with stage("input_wait"):
-                item = next(it, None)
-            if item is None:
-                break
-            emit(self.submit_pack(*item))
+        for pack1, pack2 in prefetched(iter_packs_paired_cached(
+                opt.in1, opt.in2, opt.interleaved_input, pack_reads, opt.phred64)):
+            emit(self.submit_pack(pack1, pack2))
         loginfo(f"processed {total} read pairs")
 
         with stage("writer_close"):
@@ -234,6 +241,168 @@ class PairEndRunner:
                 if w is not None:
                     w.close()
         self.write_reports()
+
+    def _run_mh(self, mh) -> None:
+        """Multi-host run: process owned pair packs, write pack-indexed part
+        files per output stream, reduce accumulators to rank 0, which merges
+        the streams and writes the reports (dist/multihost.py)."""
+        from ..dist import multihost
+        opt = self.opt
+        if opt.split.enabled:
+            self._run_mh_split(mh)
+            return
+        # out1's stream exists whenever -o is given (an empty file when -O is
+        # missing, peprocessor.cpp:54-61); pair routing still needs BOTH
+        # (peprocessor.cpp:469-475)
+        route_pairs = bool(opt.out1 and opt.out2)
+        streams = [("out1", opt.out1),
+                   ("out2", opt.out2 if route_pairs else None),
+                   ("unpaired1", opt.unpaired1),
+                   ("unpaired2", opt.unpaired2
+                    if opt.unpaired2 and opt.unpaired2 != opt.unpaired1 else None),
+                   ("merged", opt.merge_pe.out
+                    if opt.merge_pe.enabled and opt.merge_pe.out else None),
+                   ("failed", opt.failed_out)]
+        writers = {name: mh.part_writer(path, opt.compression)
+                   for name, path in streams if path}
+        pack_reads = main_pack_reads(opt)
+        unit = main_write_unit(opt)
+        batch_units = max(1, pack_reads // unit)
+        self._make_ora_defer(opt)
+        for u_lo, pack1, pack2 in prefetched(mh.iter_owned_pe(
+                opt.in1, opt.in2, opt.interleaved_input,
+                unit, opt.phred64, batch_units)):
+            self._pre_counter = u_lo * unit
+            self._record_base = u_lo * unit
+            r = self.complete_pack(self.submit_pack(pack1, pack2),
+                                   has_unpaired1=opt.unpaired1 != "",
+                                   want_failed=opt.failed_out != "",
+                                   unit_reads=unit)
+            for name, w in writers.items():
+                if name in ("out1", "out2") and not route_pairs:
+                    continue
+                for j, s in enumerate(r[name]):
+                    w.write(u_lo + j, s)
+        with stage("writer_close"):
+            for w in writers.values():
+                w.close()
+        loginfo(f"PE processing finished (rank {mh.rank}/{mh.world})")
+        from ..host import tracing
+        tracing.mark("stream_done")
+        self._replay_ora_defer(mh)
+        payload = dict(
+            pre1=self.pre1, pre2=self.pre2, post1=self.post1, post2=self.post2,
+            fr=self.filter_result, insert_hist=self.insert_hist,
+            dup=None if self.dup is None else self.dup.payload(),
+            errs=multihost.drain_stream_errors(),
+            idx={name: w.index for name, w in writers.items()})
+        gathered = mh.gather(payload)
+        tracing.mark("gather_done")
+        if mh.rank == 0:
+            multihost.surface_stream_errors(gathered)
+            self._merge_gathered(gathered)
+            for name, w in writers.items():
+                mh.merge_stream(w.final_path, opt.compression,
+                                [pl["idx"].get(name, []) for pl in gathered])
+            tracing.mark("merge_done")
+            self.write_reports()
+        mh.barrier()
+
+    def _run_mh_split(self, mh) -> None:
+        """Multi-host split (`-s`/`-S`) PE run: per-pack ownership and
+        output framing, rank-0 rotation replay routing out1/out2 spans to
+        numbered files; the non-split streams (unpaired/merged/failed) merge
+        as single streams with the same per-pack framing the single-process
+        split path writes them with (see SingleEndRunner._run_mh_split)."""
+        from ..dist import multihost
+        from .runner import replay_split_rotation, split_file_name
+        opt = self.opt
+        pack_reads = main_pack_reads(opt)
+        split_streams = [("out1", opt.out1), ("out2", opt.out2)]
+        plain_streams = [
+            ("unpaired1", opt.unpaired1),
+            ("unpaired2", opt.unpaired2
+             if opt.unpaired2 and opt.unpaired2 != opt.unpaired1 else None),
+            ("merged", opt.merge_pe.out
+             if opt.merge_pe.enabled and opt.merge_pe.out else None),
+            ("failed", opt.failed_out)]
+        writers = {name: mh.part_writer(path, opt.compression)
+                   for name, path in split_streams + plain_streams if path}
+        self._make_ora_defer(opt)
+        rotation = {}
+        for gidx, pack1, pack2 in prefetched(mh.iter_owned_pe(
+                opt.in1, opt.in2, opt.interleaved_input,
+                pack_reads, opt.phred64, 1)):
+            self._pre_counter = gidx * pack_reads
+            self._record_base = gidx * pack_reads
+            r = self.complete_pack(self.submit_pack(pack1, pack2),
+                                   has_unpaired1=opt.unpaired1 != "",
+                                   want_failed=opt.failed_out != "")
+            rotation[gidx] = (pack1.count, r["read_passed"])
+            for name, w in writers.items():
+                w.write(gidx, r[name])
+        with stage("writer_close"):
+            for w in writers.values():
+                w.close()
+        loginfo(f"PE split processing finished (rank {mh.rank}/{mh.world})")
+        from ..host import tracing
+        tracing.mark("stream_done")
+        self._replay_ora_defer(mh)
+        payload = dict(
+            pre1=self.pre1, pre2=self.pre2, post1=self.post1, post2=self.post2,
+            fr=self.filter_result, insert_hist=self.insert_hist,
+            dup=None if self.dup is None else self.dup.payload(),
+            rot=rotation,
+            errs=multihost.drain_stream_errors(),
+            idx={name: w.index for name, w in writers.items()})
+        gathered = mh.gather(payload)
+        tracing.mark("gather_done")
+        if mh.rank == 0:
+            multihost.surface_stream_errors(gathered)
+            self._merge_gathered(gathered)
+            rot: dict = {}
+            for pl in gathered:
+                rot.update(pl["rot"])
+            counts = [rot[i] for i in sorted(rot)]
+            assign, nfiles = replay_split_rotation(opt, counts)
+            for name, w in writers.items():
+                idx = [pl["idx"].get(name, []) for pl in gathered]
+                if name in ("out1", "out2"):
+                    base = opt.out1 if name == "out1" else opt.out2
+                    mh.merge_split_stream(
+                        w.final_path, opt.compression, idx, assign, nfiles,
+                        lambda k, b=base: split_file_name(opt, b, k))
+                else:
+                    mh.merge_stream(w.final_path, opt.compression, idx)
+            tracing.mark("merge_done")
+            self.write_reports()
+        mh.barrier()
+
+    def _merge_gathered(self, gathered) -> None:
+        """Rank 0: fold the other ranks' accumulators into this runner's."""
+        for pl in gathered[1:]:
+            self.pre1.merge(pl["pre1"])
+            self.pre2.merge(pl["pre2"])
+            self.post1.merge(pl["post1"])
+            self.post2.merge(pl["post2"])
+            self.filter_result.merge(pl["fr"])
+            self.insert_hist += pl["insert_hist"]
+            if self.dup is not None and pl["dup"] is not None:
+                self.dup.merge_payload(pl["dup"])
+
+    def _make_ora_defer(self, opt) -> None:
+        if opt.over_rep.enabled:
+            from ..host.ora_defer import DeferredOraSampler
+            self._ora_post1_defer = DeferredOraSampler(
+                opt.over_rep.sampling, self.post1)
+            self._ora_post2_defer = DeferredOraSampler(
+                opt.over_rep.sampling, self.post2)
+
+    def _replay_ora_defer(self, mh) -> None:
+        if self._ora_post1_defer is not None:
+            from ..host.ora_defer import exchange_and_replay
+            exchange_and_replay(
+                mh, [self._ora_post1_defer, self._ora_post2_defer])
 
     # ------------------------------------------------------------------
     def submit_pack(self, pack1: ReadPack, pack2: ReadPack):
@@ -349,7 +518,9 @@ class PairEndRunner:
             self.dup.add_batch(
                 np.asarray(d.key), np.asarray(d.kmer_hi),
                 np.asarray(d.kmer_lo), np.asarray(d.gc), valid,
-                key_hi=None if d.key_hi is None else np.asarray(d.key_hi))
+                key_hi=None if d.key_hi is None else np.asarray(d.key_hi),
+                base=None if self._record_base is None
+                else self._record_base + lo)
 
         kchunk = keep[lo : lo + n]
         result1 = np.asarray(out["result1"])[:n]
@@ -525,20 +696,44 @@ class PairEndRunner:
         idx1 = np.flatnonzero(m_written | (m_unm & pass1v))
         idx2 = np.flatnonzero(m_unm & pass2v)
         if sampling:
-            for k in range(-self._post1_counter % sampling, len(idx1),
-                           sampling):
-                i = int(idx1[k])
-                if m_written[i]:
-                    self.post1.add_over_rep_read(
-                        m_seq[i, : m_rlen[i]].tobytes())
-                else:
-                    self.post1.add_over_rep_read(
-                        content1(i, base1[i], int(rlen1[i]))[0])
-            for k in range(-self._post2_counter % sampling, len(idx2),
-                           sampling):
-                i = int(idx2[k])
-                self.post2.add_over_rep_read(
-                    content2(i, base2[i], int(rlen2[i]))[0])
+            if self._ora_post1_defer is not None:
+                # multi-host: spool the merged-stream emit order (merged read
+                # content or unmerged-kept r1) for the deferred global replay
+                from ..host.ora_defer import place_segments, ragged_gather
+                key = self._record_base + lo
+                mmask = m_written[idx1]
+                lens1 = np.where(mmask, m_rlen[idx1],
+                                 rlen1[idx1]).astype(np.int64)
+                flat1 = np.empty(int(lens1.sum()), np.uint8)
+                offs = np.cumsum(lens1) - lens1
+                im, iu = idx1[mmask], idx1[~mmask]
+                place_segments(flat1, offs[mmask],
+                               ragged_gather(m_seq, im,
+                                             np.zeros(len(im), np.int64),
+                                             m_rlen[im]),
+                               m_rlen[im])
+                place_segments(flat1, offs[~mmask],
+                               ragged_gather(mat1s, iu, base1[iu], rlen1[iu]),
+                               rlen1[iu])
+                self._ora_post1_defer.add_interval(key, flat1, lens1)
+                self._ora_post2_defer.add_interval(
+                    key, ragged_gather(mat2s, idx2, base2[idx2], rlen2[idx2]),
+                    rlen2[idx2])
+            else:
+                for k in range(-self._post1_counter % sampling, len(idx1),
+                               sampling):
+                    i = int(idx1[k])
+                    if m_written[i]:
+                        self.post1.add_over_rep_read(
+                            m_seq[i, : m_rlen[i]].tobytes())
+                    else:
+                        self.post1.add_over_rep_read(
+                            content1(i, base1[i], int(rlen1[i]))[0])
+                for k in range(-self._post2_counter % sampling, len(idx2),
+                               sampling):
+                    i = int(idx2[k])
+                    self.post2.add_over_rep_read(
+                        content2(i, base2[i], int(rlen2[i]))[0])
         self._post1_counter += len(idx1)
         self._post2_counter += len(idx2)
 
@@ -602,16 +797,26 @@ class PairEndRunner:
                 mat2s, mat2q, s2, rlen2))
             if sampling:
                 idx = np.flatnonzero(bothpass)
-                for k in range(-self._post1_counter % sampling, len(idx),
-                               sampling):
-                    i = idx[k]
-                    self.post1.add_over_rep_read(
-                        mat1s[i, s1[i] : s1[i] + rlen1[i]].tobytes())
-                for k in range(-self._post2_counter % sampling, len(idx),
-                               sampling):
-                    i = idx[k]
-                    self.post2.add_over_rep_read(
-                        mat2s[i, s2[i] : s2[i] + rlen2[i]].tobytes())
+                if self._ora_post1_defer is not None:
+                    from ..host.ora_defer import ragged_gather
+                    key = self._record_base + lo
+                    self._ora_post1_defer.add_interval(
+                        key, ragged_gather(mat1s, idx, s1[idx], rlen1[idx]),
+                        rlen1[idx])
+                    self._ora_post2_defer.add_interval(
+                        key, ragged_gather(mat2s, idx, s2[idx], rlen2[idx]),
+                        rlen2[idx])
+                else:
+                    for k in range(-self._post1_counter % sampling, len(idx),
+                                   sampling):
+                        i = idx[k]
+                        self.post1.add_over_rep_read(
+                            mat1s[i, s1[i] : s1[i] + rlen1[i]].tobytes())
+                    for k in range(-self._post2_counter % sampling, len(idx),
+                                   sampling):
+                        i = idx[k]
+                        self.post2.add_over_rep_read(
+                            mat2s[i, s2[i] : s2[i] + rlen2[i]].tobytes())
                 self._post1_counter += len(idx)
                 self._post2_counter += len(idx)
 

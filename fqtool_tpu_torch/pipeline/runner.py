@@ -4,12 +4,13 @@ runners share.
 Copied from ``fqtool_tpu/pipeline/runner.py`` (which imports JAX at module
 level): the failed-stream tag catalog, the chunk-size buckets, the pack and
 write-unit framing, the pipelined drain of dispatched chunks, the index
-filter, the split-output writer and the log line, and a single-host
-``SingleEndRunner`` whose fold, ORA sampling, adapter/polyG/polyX
-accounting, failed stream and reports are unchanged.  Its dispatch uploads
-each chunk and runs the port's ``se_pipeline`` on one torch device, with no
-padded rows.  Output record order is always input order (the reference run
-with one worker thread).
+filter, the split-output writer, the split rotation replay and the log line,
+and ``SingleEndRunner`` whose fold, ORA sampling (deferred in multi-host
+runs), adapter/polyG/polyX accounting, failed stream, multi-host runs
+(``_run_mh``, ``_run_mh_split``; dist/multihost.py) and reports are
+unchanged.  Its dispatch uploads each chunk and runs the port's
+``se_pipeline`` on one torch device, with no padded rows.  Output record
+order is always input order (the reference run with one worker thread).
 """
 
 from __future__ import annotations
@@ -73,24 +74,25 @@ def drain_pipelined(pending):
 # Fixed device batch sizes: a pack's chunks all use one of these row counts
 # (fqtool_tpu sizes its compiled programs by them; kept so that the chunk
 # boundaries, and with them the output framing, are the same here)
-SE_CHUNK = 65536
+SE_CHUNK = int(os.environ.get("FQTOOL_TPU_SE_CHUNK", "65536"))
 _BUCKETS = (256, 2048, 8192, 16384, 32768)
-# device chunks per single-end pack when split output is off: the device
-# computes chunk k+1 while the host fetches and folds chunk k
-SE_PACK_CHUNKS = 2
 # Write unit: the input-record quantum at which output streams are
-# deflate-framed (each unit an independent run of deflate blocks), as in
-# fqtool_tpu, so the gzip bytes agree with its runs
-WRITE_UNIT = 16384
+# deflate-framed (each unit an independent run of deflate blocks) and, in
+# multi-host runs, the quantum of pack ownership, as in fqtool_tpu, so the
+# gzip bytes agree with its runs and with any world size
+WRITE_UNIT = int(os.environ.get("FQTOOL_TPU_WRITE_UNIT", "16384"))
 
 
 def main_pack_reads(opt) -> int:
-    """Main-pass pack framing for SE runs: whole device chunks when split is
-    off (pack size only shows in the output through split-file rotation).
-    Shared with main.py's head-cache activation so the pre-pass reader and
-    the main pass agree on framing (io/headcache.py)."""
+    """Main-pass pack framing for SE runs: FQTOOL_TPU_SE_PACK_CHUNKS (default
+    2) whole device chunks when split is off, so the device computes chunk
+    k+1 while the host fetches and folds chunk k (pack size only shows in
+    the output through split-file rotation).  Shared with main.py's
+    head-cache activation so the pre-pass reader and the main pass agree on
+    framing (io/headcache.py)."""
+    pack_chunks = max(1, int(os.environ.get("FQTOOL_TPU_SE_PACK_CHUNKS", "2")))
     return (opt.buf_size.max_reads_in_pack if opt.split.enabled
-            else SE_CHUNK * SE_PACK_CHUNKS)
+            else SE_CHUNK * pack_chunks)
 
 
 def main_write_unit(opt) -> int:
@@ -115,6 +117,18 @@ def chunk_rows(pack_total: int, cap: int) -> int:
         if pack_total <= b and b <= cap:
             return b
     return cap
+
+
+def prefetched(packs):
+    """``packs`` read one ahead in a prefetch thread (io/fastq.py), with each
+    wait of the main loop for the next item timed as stage ``input_wait``."""
+    it = prefetch_iter(packs)
+    while True:
+        with stage("input_wait"):
+            item = next(it, None)
+        if item is None:
+            return
+        yield item
 
 
 def loginfo(msg: str) -> None:
@@ -142,6 +156,33 @@ def split_file_name(opt: Options, base: str, k: int) -> str:
     d = os.path.dirname(base)
     return os.path.join(d, num + "." + os.path.basename(base)) if d \
         else num + "." + os.path.basename(base)
+
+
+def replay_split_rotation(opt: Options, counts: List[tuple]):
+    """Replay :class:`SplitWriter`'s rotation state machine over the global
+    pack sequence without any output bytes.
+
+    ``counts`` is the ordered per-pack ``(input_count, read_passed)`` list;
+    returns ``(assign, nfiles)`` where ``assign[i]`` is the split-file
+    number pack ``i``'s records land in and ``nfiles`` includes the empty
+    files --split_file_number fills at close (threadconfig.cpp:107-137).
+    Used by the multi-host merge: ranks report their owned packs' counts and
+    rank 0 routes each pack's pre-deflated spans to the same numbered file
+    the single-process run would have written."""
+    assign = []
+    working = 0
+    cur = 0
+    for count, read_passed in counts:
+        assign.append(working)
+        cur += read_passed if opt.split.by_file_lines else count
+        if cur >= opt.split.size:
+            if opt.split.by_file_lines or working + 1 < opt.split.number:
+                working += 1
+                cur = 0
+    nfiles = working + 1
+    if opt.split.by_file_number:
+        nfiles = max(nfiles, opt.split.number)
+    return assign, nfiles
 
 
 class SplitWriter:
@@ -221,7 +262,13 @@ class SingleEndRunner:
                     if opt.duplicate.enabled else None)
         self._pre_counter = 0
         self._post_counter = 0
+        # multi-host: post-filter ORA sampling is deferred until the global
+        # passing-prefix counts are known (host/ora_defer.py)
+        self._ora_post_defer = None
         self._rows = 0  # device batch size, locked at the first pack
+        # global stream index of the current pack's first record (multi-host
+        # runs; None = single-host, dup table keeps its own local counter)
+        self._record_base = None
         self.adapter_r1 = self._effective_adapter()
 
     def _make_stats(self) -> StatsAccumulator:
@@ -243,6 +290,11 @@ class SingleEndRunner:
     # ------------------------------------------------------------------
     def run(self) -> None:
         opt = self.opt
+        from ..dist import multihost
+        mh = multihost.active()
+        if mh is not None:
+            self._run_mh(mh)
+            return
         split = SplitWriter(opt, paired=False) if opt.split.enabled else None
         out_writer = (AsyncWriter(opt.out1, opt.compression)
                       if opt.out1 and not opt.split.enabled else None)
@@ -276,12 +328,7 @@ class SingleEndRunner:
                     failed_writer.write(s)
 
         from ..io.headcache import iter_packs_cached
-        it = prefetch_iter(iter_packs_cached(opt.in1, pack_reads, opt.phred64))
-        while True:
-            with stage("input_wait"):
-                pack = next(it, None)
-            if pack is None:
-                break
+        for pack in prefetched(iter_packs_cached(opt.in1, pack_reads, opt.phred64)):
             emit(self.submit_pack(pack))
         loginfo(f"processed {total} reads")
 
@@ -294,6 +341,152 @@ class SingleEndRunner:
                 failed_writer.close()
         with stage("reports"):
             self.write_reports()
+
+    def _run_mh(self, mh) -> None:
+        """Multi-host run: process owned packs, write pack-indexed part
+        files, reduce accumulators to rank 0, which merges the output streams
+        and writes the reports (dist/multihost.py)."""
+        from ..dist import multihost
+        opt = self.opt
+        if opt.split.enabled:
+            self._run_mh_split(mh)
+            return
+        writers = {}
+        if opt.out1:
+            writers["out1"] = mh.part_writer(opt.out1, opt.compression)
+        if opt.failed_out:
+            writers["failed"] = mh.part_writer(opt.failed_out, opt.compression)
+        pack_reads = main_pack_reads(opt)
+        unit = main_write_unit(opt)
+        batch_units = max(1, pack_reads // unit)
+        if opt.over_rep.enabled:
+            from ..host.ora_defer import DeferredOraSampler
+            self._ora_post_defer = DeferredOraSampler(
+                opt.over_rep.sampling, self.post_stats)
+        for u_lo, pack in prefetched(
+                mh.iter_owned_se(opt.in1, unit, opt.phred64, batch_units)):
+            # ORA pre-sampling strides over the GLOBAL stream order; units
+            # are fixed-size so the base index is unit_idx * unit.  (Post
+            # sampling is deferred to the global replay below.)
+            self._pre_counter = u_lo * unit
+            self._record_base = u_lo * unit
+            bounds = unit_bounds_for(pack.count, unit)
+            outstrs, failedstrs, _ = self.complete_pack(
+                self.submit_pack(pack), bounds)
+            for j, (s, f) in enumerate(zip(outstrs, failedstrs)):
+                if "out1" in writers:
+                    writers["out1"].write(u_lo + j, s)
+                if "failed" in writers:
+                    writers["failed"].write(u_lo + j, f)
+        with stage("writer_close"):
+            for w in writers.values():
+                w.close()
+        loginfo(f"SE processing finished (rank {mh.rank}/{mh.world})")
+        from ..host import tracing
+        tracing.mark("stream_done")
+        if self._ora_post_defer is not None:
+            from ..host.ora_defer import exchange_and_replay
+            exchange_and_replay(mh, [self._ora_post_defer])
+        payload = dict(
+            pre=self.pre_stats, post=self.post_stats, fr=self.filter_result,
+            dup=None if self.dup is None else self.dup.payload(),
+            errs=multihost.drain_stream_errors(),
+            idx={name: w.index for name, w in writers.items()})
+        gathered = mh.gather(payload)
+        tracing.mark("gather_done")
+        if mh.rank == 0:
+            multihost.surface_stream_errors(gathered)
+            self._merge_gathered(gathered)
+            for name, w in writers.items():
+                mh.merge_stream(w.final_path, opt.compression,
+                                [pl["idx"].get(name, []) for pl in gathered])
+            tracing.mark("merge_done")
+            with stage("reports"):
+                self.write_reports()
+        mh.barrier()
+
+    def _run_mh_split(self, mh) -> None:
+        """Multi-host split (`-s`/`-S`) run.
+
+        Ownership quantum = the split pack size (rotation happens between
+        packs in the single-process path), each rank deflates its owned
+        packs' output with the per-pack framing SplitWriter uses, and rank 0
+        replays the rotation state machine over the gathered global
+        ``(count, read_passed)`` sequence to route every pack's spans to the
+        same numbered file -- bytes identical to the single-process run
+        (reference rotation: src/threadconfig.cpp:88-137)."""
+        from ..dist import multihost
+        opt = self.opt
+        pack_reads = main_pack_reads(opt)
+        w_split = mh.part_writer(opt.out1, opt.compression) if opt.out1 else None
+        w_failed = (mh.part_writer(opt.failed_out, opt.compression)
+                    if opt.failed_out else None)
+        if opt.over_rep.enabled:
+            from ..host.ora_defer import DeferredOraSampler
+            self._ora_post_defer = DeferredOraSampler(
+                opt.over_rep.sampling, self.post_stats)
+        rotation = {}
+        for gidx, pack in prefetched(
+                mh.iter_owned_se(opt.in1, pack_reads, opt.phred64, 1)):
+            self._pre_counter = gidx * pack_reads
+            self._record_base = gidx * pack_reads
+            outstr, failedstr, read_passed = self.complete_pack(
+                self.submit_pack(pack))
+            rotation[gidx] = (pack.count, read_passed)
+            if w_split is not None:
+                w_split.write(gidx, outstr)
+            if w_failed is not None:
+                w_failed.write(gidx, failedstr)
+        with stage("writer_close"):
+            for w in (w_split, w_failed):
+                if w is not None:
+                    w.close()
+        loginfo(f"SE split processing finished (rank {mh.rank}/{mh.world})")
+        from ..host import tracing
+        tracing.mark("stream_done")
+        if self._ora_post_defer is not None:
+            from ..host.ora_defer import exchange_and_replay
+            exchange_and_replay(mh, [self._ora_post_defer])
+        payload = dict(
+            pre=self.pre_stats, post=self.post_stats, fr=self.filter_result,
+            dup=None if self.dup is None else self.dup.payload(),
+            rot=rotation,
+            errs=multihost.drain_stream_errors(),
+            idx={name: w.index for name, w in
+                 (("out1", w_split), ("failed", w_failed)) if w is not None})
+        gathered = mh.gather(payload)
+        tracing.mark("gather_done")
+        if mh.rank == 0:
+            multihost.surface_stream_errors(gathered)
+            self._merge_gathered(gathered)
+            rot: dict = {}
+            for pl in gathered:
+                rot.update(pl["rot"])
+            counts = [rot[i] for i in sorted(rot)]
+            assign, nfiles = replay_split_rotation(opt, counts)
+            if w_split is not None:
+                mh.merge_split_stream(
+                    opt.out1, opt.compression,
+                    [pl["idx"].get("out1", []) for pl in gathered],
+                    assign, nfiles,
+                    lambda k: split_file_name(opt, opt.out1, k))
+            if w_failed is not None:
+                mh.merge_stream(
+                    opt.failed_out, opt.compression,
+                    [pl["idx"].get("failed", []) for pl in gathered])
+            tracing.mark("merge_done")
+            with stage("reports"):
+                self.write_reports()
+        mh.barrier()
+
+    def _merge_gathered(self, gathered) -> None:
+        """Rank 0: fold the other ranks' accumulators into this runner's."""
+        for pl in gathered[1:]:
+            self.pre_stats.merge(pl["pre"])
+            self.post_stats.merge(pl["post"])
+            self.filter_result.merge(pl["fr"])
+            if self.dup is not None and pl["dup"] is not None:
+                self.dup.merge_payload(pl["dup"])
 
     # ------------------------------------------------------------------
     def submit_pack(self, pack: ReadPack):
@@ -317,7 +510,7 @@ class SingleEndRunner:
         if not self._rows:
             self._rows = chunk_rows(B, SE_CHUNK)
         rows = self._rows
-        pending = []  # one (handle,) per chunk, for drain_pipelined
+        pending = []  # one (rows, handle) per chunk, for drain_pipelined
         lo = 0
         while lo < B:
             hi = min(lo + rows, B)
@@ -327,7 +520,7 @@ class SingleEndRunner:
                 self.device, p=self.params, adapter_r1=self.adapter_r1,
                 use_start0=bool(opt.umi.enabled),
                 with_kmer=bool(opt.kmer.enabled))
-            pending.append((call,))
+            pending.append((hi - lo, call))
             lo = hi
         return pack, start0, keep, pending
 
@@ -335,13 +528,14 @@ class SingleEndRunner:
         """Collect dispatched chunk outputs; fold stats/dup, concatenate the
         per-read arrays."""
         merged: dict = {}
+        base = self._record_base
         drain = drain_pipelined(pending)
         while True:
             with stage("device_wait"):
                 item = next(drain, None)
             if item is None:
                 break
-            (out,) = item
+            n, out = item
             self.pre_stats.add_batch(out.pop("pre"))
             self.post_stats.add_batch(out.pop("post"))
             if "pre_kmer" in out:
@@ -351,7 +545,9 @@ class SingleEndRunner:
             if self.dup is not None:
                 d = out.pop("dup")
                 self.dup.add_batch(d.key, d.kmer_hi, d.kmer_lo, d.gc, d.valid,
-                                   key_hi=d.key_hi)
+                                   key_hi=d.key_hi, base=base)
+            if base is not None:
+                base += n
             for k, v in out.items():
                 merged.setdefault(k, []).append(v)
         return {k: (np.concatenate(v) if len(v) > 1 else v[0])
@@ -437,12 +633,24 @@ class SingleEndRunner:
         if opt.over_rep.enabled:
             sampling = opt.over_rep.sampling
             passing = np.flatnonzero(select_pass)
-            for k in range(-self._post_counter % sampling, len(passing),
-                           sampling):
-                i = passing[k]
-                s, n = int(front[i]), int(rlen[i])
-                self.post_stats.add_over_rep_read(pack.seq[i, s : s + n].tobytes())
-            self._post_counter += len(passing)
+            if self._ora_post_defer is not None:
+                # multi-host: the global passing prefix is unknown until end
+                # of stream -- spool the passing sequences and replay later
+                # (host/ora_defer.py)
+                from ..host.ora_defer import ragged_gather
+                self._ora_post_defer.add_interval(
+                    self._record_base,
+                    ragged_gather(pack.seq, passing, front[passing],
+                                  rlen[passing]),
+                    rlen[passing])
+            else:
+                for k in range(-self._post_counter % sampling,
+                               len(passing), sampling):
+                    i = passing[k]
+                    s, n = int(front[i]), int(rlen[i])
+                    self.post_stats.add_over_rep_read(
+                        pack.seq[i, s : s + n].tobytes())
+                self._post_counter += len(passing)
 
         failedstr = b"" if unit_bounds is None else \
             [b""] * (len(unit_bounds) - 1)

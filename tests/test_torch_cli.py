@@ -3,9 +3,10 @@
 Both CLIs run in-process on the same inputs with the same argv; every
 output stream must hold the same records and the JSON reports must agree
 under ``compare_json``.  The port runs on the CPU here
-(``FQTOOL_TPU_TORCH_DEVICE=cpu``); multi-host runs exit with 255, and asking
-for CUDA where there is none is an error.  ``test_torch_se_cli.py`` covers
-the single-end options, ``test_torch_pe_cli*.py`` the paired-end stages.
+(``FQTOOL_TPU_TORCH_DEVICE=cpu``); asking for CUDA where there is none is
+an error.  ``test_torch_se_cli.py`` covers the single-end options,
+``test_torch_pe_cli*.py`` the paired-end stages, ``test_torch_multihost_*.py``
+multi-host runs.
 """
 
 from __future__ import annotations
@@ -115,18 +116,6 @@ def test_single_end_runs(tmp_path, monkeypatch):
                       monkeypatch)
     assert rep["Summary"]["BeforeFiltering"]["TotalReads"] == 2000
     assert rep["AdapterTrim"]["AdapterTrimmedReads"] > 0
-
-
-def test_multihost_refused(tmp_path, capsys, monkeypatch):
-    from fqtool_tpu_torch.main import main
-    monkeypatch.setenv("FQTOOL_TPU_TORCH_DEVICE", "cpu")
-    write_pairs(tmp_path / "r1.fq", tmp_path / "r2.fq", 10, seed=1)
-    monkeypatch.setenv("FQTOOL_TPU_COORDINATOR", "localhost:1")
-    monkeypatch.setenv("FQTOOL_TPU_NPROCS", "2")
-    for argv in (_argv(tmp_path / "r1.fq", tmp_path / "r2.fq"),
-                 ["-i", str(tmp_path / "r1.fq"), "-o", "o.fq"]):
-        assert _run(main, argv, tmp_path) == 255
-        assert "multi-host" in capsys.readouterr().err
 
 
 def test_paired_end_stdin(tmp_path, monkeypatch):

@@ -70,6 +70,7 @@ def test_the_scan_sees_the_port_and_the_smoke_helpers():
     rel = {str(p.relative_to(REPO)) for p in SOURCES}
     assert {"fqtool_tpu_torch/main.py", "fqtool_tpu_torch/config/cli.py",
             "fqtool_tpu_torch/io/fastq.py", "fqtool_tpu_torch/host/tracing.py",
+            "fqtool_tpu_torch/dist/multihost.py", "fqtool_tpu_torch/dist/ingest.py",
             "chip_smoke.py", "overlap_ab.py", "tests/oracle.py", "tests/torch_pairs.py",
             "tests/torch_reads.py"} <= rel
     bad = ast.parse("import fqtool_tpu.ops\nfrom jax import numpy\n"

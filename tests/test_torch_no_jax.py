@@ -21,7 +21,9 @@ from .torch_reads import ADAPTER, write_reads
 
 REPO = Path(__file__).resolve().parent.parent
 
-_SCRIPT = r"""
+# the import hook, also put in front of every rank of the multi-host tests
+# (tests/torch_multihost.py)
+NO_JAX_HOOK = r"""
 import importlib.abc, sys
 
 BLOCKED = ("jax", "jaxlib", "fqtool_tpu")
@@ -33,6 +35,9 @@ class NoJax(importlib.abc.MetaPathFinder):
                               "neither JAX nor fqtool_tpu")
 
 sys.meta_path.insert(0, NoJax())
+"""
+
+_SCRIPT = NO_JAX_HOOK + r"""
 from fqtool_tpu_torch.main import main
 rc = main(sys.argv[1:])
 import chip_smoke
