@@ -61,10 +61,29 @@ Phases, each of which stops the run with a nonzero exit on failure:
    reports equal, and the ranks' overlap kernel launches must sum to calls x
    chunks. Prints each run's wall, rate, every rank's
    ``FQTOOL_TPU_TIMING_JSON`` marks, stage split and busy ms on the card.
+13. the device split (dist/sharding.py) with ``FQTOOL_TPU_TORCH_DEVICE=
+   cuda:0,cuda:0``: pe_merge_corr on phase 7's pairs, traced as phase 4,
+   every output byte-identical to phase 7's run and the reports equal, the
+   overlap kernel launched for both parts of both calls of every chunk, its
+   pairs/s beside phase 7's; se_all on phase 11's reads against a one-device
+   run; ``entry("cuda")`` against ``entry("cpu")``; ``dryrun(2)`` over
+   cuda:0 twice;
+14. the transports: the link probe's MB/s to the card and its decision;
+   ``decode_device``/``decode5_device`` on the card against the CPU and the
+   original planes (65,536 binned reads); pe_full on phase 8's pairs and
+   se_all with ``--ora`` on 150,000 of phase 10's reads (two packs), both
+   with binned qualities (six values, so the 5-bit dictionary holds every
+   pack), under ``FQTOOL_TPU_PACKED=1`` with ``FQTOOL_TPU_PACKED5`` 1 and 0,
+   ``FQTOOL_TPU_INBLOB=1``, ``FQTOOL_TPU_PACK_OVERLAP=1`` and
+   ``FQTOOL_TPU_HEADCACHE=0``: each byte-identical to the default run, with
+   the transport each chunk took counted (``pipeline/runner.py::
+   transport_chunks``); then a ``FQTOOL_TPU_PROFILE_DIR`` run that must leave
+   its trace.
 
 The second-to-last line is the kernel table as JSON (the overlap kernel's
-launches summed over the three paired-end main paths and the paired-end
-ranks of phase 12), the last line ``{"ok": true, "device": {...}}``.  Run
+launches summed over the paired-end main paths, the paired-end ranks of
+phase 12, phase 13's split run and phase 14's pe_full runs), the last line
+``{"ok": true, "device": {...}}``.  Run
 from the repository root: ``python3 chip_smoke.py`` (``--pairs``/``--subset``
 /``--reads`` shrink the main-path phases).
 """
@@ -91,7 +110,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 
-from fqtool_tpu_torch.host import native, tracing  # noqa: E402
+from fqtool_tpu_torch import entry as port_entry  # noqa: E402
+from fqtool_tpu_torch.host import linkprobe, native, tracing  # noqa: E402
 from fqtool_tpu_torch.main import main as cli_main  # noqa: E402
 from fqtool_tpu_torch.ops import adapter as se_adapter  # noqa: E402
 from fqtool_tpu_torch.ops import common as se_common  # noqa: E402
@@ -100,18 +120,22 @@ from fqtool_tpu_torch.ops import dup as se_dup  # noqa: E402
 from fqtool_tpu_torch.ops import filters as se_filters  # noqa: E402
 from fqtool_tpu_torch.ops import merge as pe_merge  # noqa: E402
 from fqtool_tpu_torch.ops import overlap, overlap_cuda, overlap_select  # noqa: E402
+from fqtool_tpu_torch.ops import packed  # noqa: E402
 from fqtool_tpu_torch.ops import polyx as se_polyx  # noqa: E402
 from fqtool_tpu_torch.ops import qualcut as se_qualcut  # noqa: E402
 from fqtool_tpu_torch.ops import stats as se_stats  # noqa: E402
 from fqtool_tpu_torch.pipeline import pe as pe_pipe  # noqa: E402
+from fqtool_tpu_torch.pipeline import runner  # noqa: E402
 from fqtool_tpu_torch.pipeline import se as se_pipe  # noqa: E402
+from fqtool_tpu_torch.pipeline.device import outputs_to_numpy  # noqa: E402
 from fqtool_tpu_torch.pipeline.pe_runner import pipeline_args  # noqa: E402
 from tests.oracle import compare_json, diff_fastq, read_fastq  # noqa: E402
 from tests.torch_pairs import (ADAPTER_R1, ADAPTER_R2,  # noqa: E402
                                OVERLAP_EDGE_CASES, _options, edge_pairs,
                                kernel_params_se, make_pairs, planted_pairs,
                                write_pairs)
-from tests.torch_reads import ADAPTER, make_reads, write_reads  # noqa: E402
+from tests.torch_reads import (ADAPTER, QUAL_BIN_TABLE,  # noqa: E402
+                               bin_qualities, make_reads, write_reads)
 
 PE_CHUNK = 16384
 FLAGS = ["-q", "-f", "3", "-t", "2"]
@@ -554,8 +578,8 @@ def _run_pe_cli(work: Path, tag: str, inputs, flags, device: str) -> Path:
 
 def phase_pe_main(work: Path, pairs: int) -> tuple:
     """pe_merge_corr and pe_full on the same pairs, whose reads run past the
-    insert into the TruSeq adapters; returns the inputs and the overlap
-    kernel's launches of both runs."""
+    insert into the TruSeq adapters; returns the inputs, the overlap
+    kernel's launches of both runs and each run's pairs/s."""
     r1, r2 = work / "a1.fq", work / "a2.fq"
     t0 = time.perf_counter()
     write_pairs(r1, r2, pairs, seed=2026, adapters=True)
@@ -563,12 +587,14 @@ def phase_pe_main(work: Path, pairs: int) -> tuple:
         f"{time.perf_counter() - t0:.3f} s")
     chunks = -(-pairs // PE_CHUNK)
     total = 0
+    rates = {}
     for tag, flags, calls in (("pe_merge_corr", PE_MERGE_CORR + PE_OUTS, 2),
                               ("pe_full", PE_FULL, 1)):
         overlap_cuda.launches = 0
         wall, d = _traced(tag, lambda: _run_pe_cli(work, tag, (r1, r2), flags, "cuda"))
         launches = overlap_cuda.launches
         total += launches
+        rates[tag] = pairs / wall
         rep = json.loads((d / "report.json").read_text())
         log(f"{tag} main path: {pairs} pairs in {wall:.3f} s = {pairs / wall:.1f} "
             f"pairs/s ({' '.join(flags)}); overlap kernel launches {launches} for "
@@ -599,7 +625,7 @@ def phase_pe_main(work: Path, pairs: int) -> tuple:
                     and sum(rep["Duplication"]["Histogram"]) > 0 and kmers):
                 raise SystemExit(f"{tag}: AdapterTrim, Duplication or k-mer "
                                  "section empty")
-    return r1, r2, total
+    return r1, r2, total, rates
 
 
 def _interleave(s1: Path, s2: Path, dst: Path) -> Path:
@@ -1014,6 +1040,163 @@ def phase_multihost(work: Path, a1: Path, a2: Path, pairs: int, fq: Path, reads:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the device split and the transports
+TWO_DEVICES = "cuda:0,cuda:0"
+SE_ALL_FAILED = SE_ALL + ["--failed_out", "failed.fq.gz"]
+
+
+def phase_devices(work: Path, a1: Path, a2: Path, pairs: int,
+                  single_rate: float, dev: str = "cuda") -> int:
+    """Phase 13; returns the overlap kernel launches of its pe_merge_corr
+    run."""
+    two = TWO_DEVICES if dev == "cuda" else f"{dev},{dev}"
+    chunks = -(-pairs // PE_CHUNK)
+    tag = "pe_merge_corr_x2"
+    overlap_cuda.launches = 0
+    wall, d = _traced(tag, lambda: _run_pe_cli(
+        work, tag, (a1, a2), PE_MERGE_CORR + PE_OUTS, two))
+    launches = overlap_cuda.launches
+    names = _same_outputs(tag, work / "pe_merge_corr", d)
+    log(f"{tag} over {two}: {pairs} pairs in {wall:.3f} s = "
+        f"{pairs / wall:.1f} pairs/s (phase 7 on one device, same call: "
+        f"{single_rate:.1f} pairs/s); {len(names)} output files byte-identical to "
+        f"phase 7's ({', '.join(names)}), reports equal; overlap kernel launches "
+        f"{launches} for {chunks} chunks")
+    if dev == "cuda" and launches != 2 * 2 * chunks:
+        raise SystemExit(f"{tag}: {launches} overlap kernel launches, {4 * chunks} "
+                         "expected (2 parts x 2 calls a chunk)")
+    sub = work / "se_sub.fq"  # phase 11's reads
+    d1 = _run_se_cli(work, sub, SE_ALL_FAILED, dev, "dev_se_all_one")
+    d2 = _run_se_cli(work, sub, SE_ALL_FAILED, two, "dev_se_all_x2")
+    names = _same_outputs("se_all_x2", d1, d2)
+    log(f"se_all over {two} on phase 11's reads: {len(names)} output files "
+        "byte-identical to the one-device run, reports equal")
+    fn, args = port_entry.entry(dev)
+    got = outputs_to_numpy(fn(*args))
+    fn, args = port_entry.entry("cpu")
+    port_entry.assert_same_outputs(f"entry() on {dev}", outputs_to_numpy(fn(*args)), got)
+    log(f"entry(): the single-end step on {dev} equals its CPU run ({len(got)} "
+        "outputs, tolerance 0)")
+    port_entry.dryrun(2, two.split(","))
+    return launches
+
+
+# name -> (environment, the transport every chunk must take)
+TRANSPORTS = {
+    "packed5": ({"FQTOOL_TPU_PACKED": "1", "FQTOOL_TPU_PACKED5": "1"}, "b5"),
+    "packed8": ({"FQTOOL_TPU_PACKED": "1", "FQTOOL_TPU_PACKED5": "0"}, "b8"),
+    "inblob": ({"FQTOOL_TPU_INBLOB": "1"}, "raw"),
+    "pack_overlap": ({"FQTOOL_TPU_PACK_OVERLAP": "1"}, "raw"),
+    "headcache_off": ({"FQTOOL_TPU_HEADCACHE": "0"}, "raw"),
+}
+
+
+def _with_env(env: dict, fn):
+    """``fn()`` with ``env`` set in os.environ, restored afterwards."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _phase_decode(dev: str) -> None:
+    """decode_device and decode5_device on the card against the CPU and the
+    planes they encode: 65,536 reads of 151 bp with binned qualities."""
+    seq, qual, _ = make_reads(SE_CHUNK, seed=77)
+    s = np.zeros((SE_CHUNK, 152), np.uint8)
+    q = np.zeros((SE_CHUNK, 152), np.uint8)
+    s[:, :151] = seq
+    q[:, :151] = QUAL_BIN_TABLE[qual]
+    enc = packed.encode_host(s, q)
+    e5 = None if enc is None else packed.encode5_host(enc)
+    if e5 is None:
+        raise SystemExit("binned reads did not encode to the 5-bit transport")
+    outs, ms = {}, {}
+    for d in ("cpu", dev):
+        t = torch.as_tensor(enc).to(d)
+        p5, d32 = (torch.as_tensor(a).to(d) for a in e5)
+        outs[d] = [x.cpu().numpy() for x in
+                   packed.decode_device(t) + packed.decode5_device(p5, d32, 152)]
+    ms = {"decode_device": _time_ms(lambda: packed.decode_device(t)),
+          "decode5_device": _time_ms(lambda: packed.decode5_device(p5, d32, 152))}
+    names = ["decode_device seq", "decode_device qual", "decode5_device seq",
+             "decode5_device qual"]
+    for name, a, b, want in zip(names, outs[dev], outs["cpu"], [s, q, s, q]):
+        if not (np.array_equal(a, b) and np.array_equal(a, want)):
+            raise SystemExit(f"{name}: {dev}, cpu and the original plane differ")
+    log(f"decode_device and decode5_device on {dev} equal the CPU and the original "
+        f"planes ({SE_CHUNK} x 152, tolerance 0); ms per chunk (CUDA events, 20 "
+        f"calls): " + json.dumps({k: round(v, 4) for k, v in ms.items()}))
+
+
+def phase_transports(work: Path, fq: Path, subset: int, se_reads: int,
+                     dev: str = "cuda") -> int:
+    """Phase 14; returns the overlap kernel launches of its pe_full runs."""
+    os.environ.pop("FQTOOL_TPU_PACKED", None)
+    linkprobe._cached = None
+    mbps = linkprobe._probe_mbps(dev)
+    log(f"link probe: {mbps:.1f} MB/s upload to {dev} (4 MiB pageable, fastest of "
+        f"{linkprobe._PROBE_ROUNDS}); threshold {linkprobe.PACKED_THRESHOLD_MBPS} "
+        f"MB/s; use_packed() = {linkprobe.use_packed(dev)}")
+    _phase_decode(dev)
+    b1 = bin_qualities(work / "as1.fq", work / "bs1.fq")  # phase 8's pairs
+    b2 = bin_qualities(work / "as2.fq", work / "bs2.fq")
+    bse = bin_qualities(_head(fq, work / "se_head.fq", se_reads), work / "bse.fq")
+    runs = {
+        "pe_full": (subset, lambda d: _run_pe_cli(work, d, (b1, b2), PE_FULL, dev)),
+        "se_all_ora": (se_reads, lambda d: _run_se_cli(
+            work, bse, SE_ALL_FAILED + ["--ora"], dev, d)),
+    }
+    total = 0
+    for tag, (n, run) in runs.items():
+        calls = 1 if tag == "pe_full" else 0
+        chunks = -(-n // PE_CHUNK)
+        variants = [("default", ({}, "raw"))] + list(TRANSPORTS.items())
+        for name, (env, mode) in variants:
+            runner.transport_chunks.clear()
+            overlap_cuda.launches = 0
+            t0 = time.perf_counter()
+            d = _with_env(env, lambda: run(f"tr_{tag}_{name}"))
+            secs = time.perf_counter() - t0
+            launches = overlap_cuda.launches
+            took = dict(runner.transport_chunks)
+            total += launches
+            if name == "default":
+                default = d
+                names = sorted(p.name for p in d.glob("*.fq.gz"))
+            else:
+                names = _same_outputs(f"{tag} {name}", default, d)
+            switches = " ".join(f"{k}={v}" for k, v in env.items()) or "no switch"
+            log(f"{tag} {name} ({switches}; {n} binned records): {secs:.3f} s; "
+                f"chunks by transport {took}; "
+                f"overlap kernel launches {launches}; {len(names)} output files"
+                + (" byte-identical to the default run, reports equal"
+                   if name != "default" else ""))
+            if set(took) != {mode}:
+                raise SystemExit(f"{tag} {name}: chunks took {took}, all {mode} expected")
+            if dev == "cuda" and launches != calls * chunks:
+                raise SystemExit(f"{tag} {name}: {launches} overlap kernel launches, "
+                                 f"{calls * chunks} expected")
+    prof = work / "profile"
+    d = _with_env({"FQTOOL_TPU_PROFILE_DIR": str(prof)},
+                  lambda: _run_se_cli(work, bse, SE_ALL_FAILED + ["--ora"], dev,
+                                      "tr_profile"))
+    traces = sorted(prof.glob("fqtool_tpu_torch.*.trace.json"))
+    if len(traces) != 1 or traces[0].stat().st_size == 0:
+        raise SystemExit(f"FQTOOL_TPU_PROFILE_DIR left {traces}")
+    _same_outputs("se_all_ora profile", work / "tr_se_all_ora_default", d)
+    log(f"FQTOOL_TPU_PROFILE_DIR: {traces[0].name}, {traces[0].stat().st_size} bytes; "
+        "outputs byte-identical to the default run")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--pairs", type=int, default=1_000_000)
@@ -1023,6 +1206,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: torch sees no CUDA device\n")
         return 1
+    t_start = time.perf_counter()
     phase_card()
     phase_build()
     entry = phase_kernel()
@@ -1033,7 +1217,7 @@ def main() -> int:
         r1, r2, launches = phase_main(work, args.pairs)
         phase_subset(work, r1, r2, min(args.subset, args.pairs))
         phase_pe_ops()
-        a1, a2, pe_launches = phase_pe_main(work, args.pairs)
+        a1, a2, pe_launches, pe_rates = phase_pe_main(work, args.pairs)
         launches += pe_launches
         phase_pe_subsets(work, a1, a2, min(args.subset, args.pairs))
         phase_se_ops()
@@ -1041,9 +1225,13 @@ def main() -> int:
         phase_se_subset(work, fq, min(args.subset, args.reads))
         launches += phase_multihost(work, a1, a2, args.pairs, fq, args.reads,
                                     min(args.subset, args.pairs))
+        launches += phase_devices(work, a1, a2, args.pairs, pe_rates["pe_merge_corr"])
+        launches += phase_transports(work, fq, min(args.subset, args.pairs),
+                                     min(150_000, args.reads))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     entry["launches"] = launches
+    log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,13 @@ CLI parse -> the multi-host process group, if configured (dist/multihost.py)
 -> stdin spooling -> evaluation pre-passes (read length, read number for
 split sizing, ORS, the paired-end adapter scan; reference:
 src/main.cpp:128-143; once across a multi-host group, broadcast from rank 0)
--> the single-end or paired-end runner on one torch device.  The device comes
-from ``FQTOOL_TPU_TORCH_DEVICE`` (default ``cuda``; every rank of a multi-host
-run on one host shares it); asking for CUDA where there is none is an error,
-never a silent run on the CPU.
+-> the single-end or paired-end runner on the run's torch devices, each
+chunk split across them when there are several (dist/sharding.py).  The
+devices come from ``FQTOOL_TPU_TORCH_DEVICE``: one torch device name or a
+comma-separated list (``cpu,cpu,cpu``, ``cuda:0,cuda:1``; a name may repeat);
+the default ``cuda`` means every visible CUDA device (every rank of a
+multi-host run on one host takes them all).  Asking for CUDA where there is
+none is an error, never a silent run on the CPU.
 """
 
 from __future__ import annotations
@@ -26,15 +29,29 @@ from .io.fastq import FastqIOError
 from .pipeline.runner import loginfo
 
 
-def device_from_env() -> str:
-    """The torch device named by FQTOOL_TPU_TORCH_DEVICE (default cuda)."""
+def device_from_env() -> list:
+    """The torch devices named by FQTOOL_TPU_TORCH_DEVICE: one name or a
+    comma-separated list; ``cuda`` alone (the default) is every visible CUDA
+    device."""
     import torch
 
-    name = os.environ.get("FQTOOL_TPU_TORCH_DEVICE", "cuda")
-    if torch.device(name).type == "cuda" and not torch.cuda.is_available():
-        raise OptionError(f"FQTOOL_TPU_TORCH_DEVICE={name}, but torch sees no "
-                          "CUDA device")
-    return name
+    value = os.environ.get("FQTOOL_TPU_TORCH_DEVICE", "cuda")
+    try:
+        devices = [torch.device(n.strip()) for n in value.split(",")]
+    except RuntimeError as e:
+        raise OptionError(f"FQTOOL_TPU_TORCH_DEVICE={value}: {e}") from None
+    if any(d.type == "cuda" for d in devices):
+        if not torch.cuda.is_available():
+            raise OptionError(f"FQTOOL_TPU_TORCH_DEVICE={value}, but torch sees "
+                              "no CUDA device")
+        count = torch.cuda.device_count()
+        if value.strip() == "cuda":
+            return [torch.device("cuda", i) for i in range(count)]
+        bad = [str(d) for d in devices if d.type == "cuda" and (d.index or 0) >= count]
+        if bad:
+            raise OptionError(f"FQTOOL_TPU_TORCH_DEVICE={value}: torch sees "
+                              f"{count} CUDA device(s), no {', '.join(bad)}")
+    return devices
 
 
 def _spool_stdin(opt: Options) -> Optional[str]:
@@ -81,7 +98,10 @@ def _activate_headcache(opt: Options) -> None:
     (io/headcache.py).  Skipped for multi-host runs (inputs go through the
     region planner, dist/ingest.py) and interleaved input (record-framed, not
     pack-framed), and only worth it when a pre-pass reads a substantial head
-    (the ORS prefix, the PE adapter scan, the split-sizing record count)."""
+    (the ORS prefix, the PE adapter scan, the split-sizing record count).
+    ``FQTOOL_TPU_HEADCACHE`` other than 1 turns it off."""
+    if os.environ.get("FQTOOL_TPU_HEADCACHE", "1") != "1":
+        return
     from .dist import multihost
     if multihost.active() is not None:
         return
@@ -176,7 +196,7 @@ def _prepass_multihost(opt: Options, mh) -> None:
     tracing.mark("prepass_broadcast_done")
 
 
-def _run(opt: Options, device: str) -> None:
+def _run(opt: Options, devices: list) -> None:
     from .dist import multihost
     from .host.tracing import stage
     from .io import headcache
@@ -192,17 +212,17 @@ def _run(opt: Options, device: str) -> None:
         # SE/PE dispatch (processor.cpp:10-19)
         if opt.is_paired():
             from .pipeline.pe_runner import PairEndRunner
-            PairEndRunner(opt, device).run()
+            PairEndRunner(opt, devices).run()
         else:
             from .pipeline.runner import SingleEndRunner
-            SingleEndRunner(opt, device).run()
+            SingleEndRunner(opt, devices).run()
     finally:
         # drop any cache the pipeline did not drain: a stale entry would
         # alias a reused path in a later in-process run
         headcache.discard_all()
 
 
-def run(opt: Options, device: str) -> None:
+def run(opt: Options, devices: list) -> None:
     from .dist import multihost
     from .io.fastq import set_worker_threads
 
@@ -221,7 +241,7 @@ def run(opt: Options, device: str) -> None:
 
     spooled = _spool_stdin(opt)
     try:
-        _run(opt, device)
+        _run(opt, devices)
     finally:
         if spooled is not None:
             os.unlink(spooled)
@@ -239,9 +259,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     try:
         opt = parse_args(argv)
-        device = device_from_env()
-        loginfo(f"fqtool_tpu_torch on {device}")
-        run(opt, device)
+        devices = device_from_env()
+        loginfo(f"fqtool_tpu_torch on {','.join(map(str, devices))}")
+        run(opt, devices)
     except (OptionError, FastqIOError) as e:
         # reference: util::errorExit prints and exits -1 (util.h:303-306)
         sys.stderr.write(f"error: {e}\n")

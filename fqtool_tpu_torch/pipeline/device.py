@@ -1,10 +1,12 @@
 """Host <-> device transport shared by the single-end and paired-end
-pipelines: upload of a chunk's numpy planes, the handle over a dispatched
-chunk, and the conversion of its output dict back to numpy (the JAX
-pipelines' host contract)."""
+pipelines: upload of a chunk's numpy planes, dispatch of a pipeline body on
+one device, the handle over a dispatched chunk, and the conversion of its
+output dict back to numpy (the JAX pipelines' host contract)."""
 
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import Dict, Sequence
 
 import numpy as np
@@ -22,6 +24,32 @@ def to_device(arrays: Sequence[np.ndarray], device) -> tuple:
             a = a.astype(np.int32)
         out.append(torch.as_tensor(a).to(device, non_blocking=True))
     return tuple(out)
+
+
+def on_device(device: torch.device):
+    """Context that makes ``device`` current when it is a card, so that
+    every launch, the overlap kernel's included, goes to its current
+    stream."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def dispatch(body, arrays: Sequence[np.ndarray], device, aux: Sequence = (),
+             **kw) -> "PipelineResult":
+    """Upload one chunk's row planes ``arrays`` and the pack-level ``aux``
+    arrays (which keep their own shape), run ``body(*planes, *aux, **kw)`` on
+    ``device`` and return the handle over its output.  With
+    ``FQTOOL_TPU_INBLOB=1`` the chunk crosses as one int32 blob each way
+    (pipeline/blob.py); by default each plane and each output tensor is
+    copied on its own."""
+    device = torch.device(device)
+    with on_device(device):
+        if os.environ.get("FQTOOL_TPU_INBLOB", "0") == "1":
+            from .blob import dispatch_blob
+            return dispatch_blob(body, arrays, aux, device, **kw)
+        out = body(*to_device(tuple(arrays) + tuple(aux), device), **kw)
+        return PipelineResult(out, device)
 
 
 def _to_numpy(x):
@@ -46,7 +74,7 @@ class PipelineResult:
 
     __slots__ = ("_out", "_stream", "_event")
 
-    def __init__(self, out: Dict[str, object], device: torch.device):
+    def __init__(self, out, device: torch.device):
         self._out = out
         self._stream = self._event = None
         if device.type == "cuda":
@@ -54,9 +82,12 @@ class PipelineResult:
             self._event = torch.cuda.Event()
             self._event.record(self._stream)
 
+    def _fetch(self) -> Dict[str, object]:
+        return outputs_to_numpy(self._out)
+
     def get(self) -> Dict[str, object]:
         if self._event is None:
-            return outputs_to_numpy(self._out)
+            return self._fetch()
         self._event.synchronize()
         with torch.cuda.stream(self._stream):
-            return outputs_to_numpy(self._out)
+            return self._fetch()

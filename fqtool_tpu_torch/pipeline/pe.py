@@ -33,7 +33,8 @@ from ..ops import polyx as ops_polyx
 from ..ops import qualcut as ops_qualcut
 from ..ops import stats as ops_stats
 from ..ops.common import align
-from .device import PipelineResult, to_device
+from ..ops.packed import decode5_device, decode_device
+from .device import PipelineResult, dispatch
 
 
 def pe_pipeline(seq1, qual1, lens1, seq2, qual2, lens2, start1, start2, keep,
@@ -220,6 +221,27 @@ def pe_pipeline(seq1, qual1, lens1, seq2, qual2, lens2, start1, start2, keep,
     return out
 
 
+def pe_pipeline_packed(enc1, lens1, enc2, lens2, start1, start2, keep,
+                       **kw) -> Dict[str, object]:
+    """``pe_pipeline`` on the packed one-byte transport: each side's seq and
+    qual ride in one uint8 plane (ops/packed.py)."""
+    seq1, qual1 = decode_device(enc1)
+    seq2, qual2 = decode_device(enc2)
+    return pe_pipeline(seq1, qual1, lens1, seq2, qual2, lens2, start1, start2,
+                       keep, **kw)
+
+
+def pe_pipeline_packed5(enc5_1, lens1, enc5_2, lens2, start1, start2, keep,
+                        dict32_1, dict32_2, *, enc_width1: int, enc_width2: int,
+                        **kw) -> Dict[str, object]:
+    """``pe_pipeline`` on the 5-bit dictionary transport
+    (ops/packed.py::encode5_host), one dictionary per side."""
+    seq1, qual1 = decode5_device(enc5_1, dict32_1, enc_width1)
+    seq2, qual2 = decode5_device(enc5_2, dict32_2, enc_width2)
+    return pe_pipeline(seq1, qual1, lens1, seq2, qual2, lens2, start1, start2,
+                       keep, **kw)
+
+
 def pe_pipeline_call(arrays: Sequence[np.ndarray], device, p: KernelParams,
                      p2: KernelParams, adapter_r1: bytes = b"",
                      adapter_r2: bytes = b"", use_start0: bool = False,
@@ -227,9 +249,7 @@ def pe_pipeline_call(arrays: Sequence[np.ndarray], device, p: KernelParams,
                      discard_unmerged: bool = False) -> PipelineResult:
     """Upload one chunk's planes (seq1, qual1, lens1, seq2, qual2, lens2,
     start1, start2, keep) and dispatch the pipeline on ``device``."""
-    device = torch.device(device)
-    out = pe_pipeline(*to_device(arrays, device), p=p, p2=p2,
-                      adapter_r1=adapter_r1, adapter_r2=adapter_r2,
-                      use_start0=use_start0, with_kmer=with_kmer,
-                      discard_unmerged=discard_unmerged)
-    return PipelineResult(out, device)
+    return dispatch(pe_pipeline, arrays, device, p=p, p2=p2,
+                    adapter_r1=adapter_r1, adapter_r2=adapter_r2,
+                    use_start0=use_start0, with_kmer=with_kmer,
+                    discard_unmerged=discard_unmerged)

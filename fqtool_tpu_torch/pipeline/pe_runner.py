@@ -1,16 +1,19 @@
 """Pair-end host runtime.
 
 Counterpart of ``fqtool_tpu/pipeline/pe_runner.py``: drives the port's
-``pe_pipeline`` over pair packs on one torch device and reproduces the output
-routing of ``PairEndProcessor::processPairEnd`` (reference:
+``pe_pipeline`` over pair packs on the run's torch devices and reproduces the
+output routing of ``PairEndProcessor::processPairEnd`` (reference:
 src/peprocessor.cpp:261-508).  ``complete_pack``, the fold, the routing
 (merge, correction patches, adapter and polyG/polyX accounting), the record
 formatters, the multi-host runs (``_run_mh``, ``_run_mh_split``, deferred ORA
 sampling and global record numbering; dist/multihost.py) and
-``write_reports`` are copied from the JAX runner.  ``submit_pack`` slices each
-pack into the same device chunks as the JAX runner, uploads them and
-dispatches the pipeline, so records, split files and gzip framing match the
-JAX CLI byte for byte.
+``write_reports`` are copied from the JAX runner, and so are the cross-pack
+overlap of ``run`` (``FQTOOL_TPU_PACK_OVERLAP``) and the device split switch
+on every run path.  ``submit_pack`` slices each pack into the same device
+chunks as the JAX runner, uploads them on the raw, packed or 5-bit transport
+and dispatches the pipeline on one device or split across several
+(dist/sharding.py), so records, split files and gzip framing match the JAX
+CLI byte for byte.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from ..config.options import Options
+from ..dist.sharding import dispatch_on
 from ..host import report_json
 from ..host.duplicate import DuplicateTable
 from ..host.filterresult import FilterResultAccumulator
@@ -31,9 +35,11 @@ from ..host.umi import process_umi
 from ..io.fastq import (AsyncWriter, ReadPack, format_array_records,
                         format_plane_array_records)
 from ..ops.filters import PASS_FILTER
-from .pe import pe_pipeline_call
+from .pe import pe_pipeline, pe_pipeline_packed, pe_pipeline_packed5
 from .runner import (_TAG_BUF, _TAG_LEN, _TAG_OFF, SplitWriter, chunk_rows,
-                     drain_pipelined, index_filter_matches, loginfo, prefetched)
+                     drain_pipelined, encode_packs,
+                     index_filter_matches, loginfo, maybe_enable_sharding,
+                     prefetched, resolve_enc, submit_and_emit, transport_chunks)
 
 # extended tag catalog: the fail-reason names plus the PE mate-fail tag
 _XTAG_BUF = _TAG_BUF + b"paired_read_is_failing"
@@ -130,9 +136,12 @@ def _assemble_merged(mat1s, mat1q, mat2s, mat2q, front1, front2, rlen2,
 
 
 class PairEndRunner:
-    def __init__(self, opt: Options, device="cuda"):
+    def __init__(self, opt: Options, devices=("cuda",)):
         self.opt = opt
-        self.device = torch.device(device)
+        # the run's local devices, and those its chunks go to (the first, or
+        # all of them once maybe_enable_sharding splits the chunks)
+        self.local_devices = [torch.device(d) for d in devices]
+        self.devices = self.local_devices[:1]
         self.p1 = opt.kernel_params(is_r2=False)
         self.p2 = opt.kernel_params(is_r2=True)
         self.pre1 = self._make_stats(False)
@@ -176,6 +185,7 @@ class PairEndRunner:
         if mh is not None:
             self._run_mh(mh)
             return
+        self.devices = maybe_enable_sharding(self.local_devices)
         split = SplitWriter(opt, paired=True) if opt.split.enabled else None
         w_out1 = (AsyncWriter(opt.out1, opt.compression)
                   if opt.out1 and not opt.split.enabled else None)
@@ -230,9 +240,9 @@ class PairEndRunner:
                         w.write(s)
 
         from ..io.headcache import iter_packs_paired_cached
-        for pack1, pack2 in prefetched(iter_packs_paired_cached(
-                opt.in1, opt.in2, opt.interleaved_input, pack_reads, opt.phred64)):
-            emit(self.submit_pack(pack1, pack2))
+        submit_and_emit(prefetched(encode_packs(iter_packs_paired_cached(
+            opt.in1, opt.in2, opt.interleaved_input, pack_reads, opt.phred64),
+            self.devices[0])), lambda packs: self.submit_pack(*packs), emit)
         loginfo(f"processed {total} read pairs")
 
         with stage("writer_close"):
@@ -251,6 +261,7 @@ class PairEndRunner:
         if opt.split.enabled:
             self._run_mh_split(mh)
             return
+        self.devices = maybe_enable_sharding(self.local_devices)
         # out1's stream exists whenever -o is given (an empty file when -O is
         # missing, peprocessor.cpp:54-61); pair routing still needs BOTH
         # (peprocessor.cpp:469-475)
@@ -269,9 +280,9 @@ class PairEndRunner:
         unit = main_write_unit(opt)
         batch_units = max(1, pack_reads // unit)
         self._make_ora_defer(opt)
-        for u_lo, pack1, pack2 in prefetched(mh.iter_owned_pe(
+        for u_lo, pack1, pack2 in prefetched(encode_packs(mh.iter_owned_pe(
                 opt.in1, opt.in2, opt.interleaved_input,
-                unit, opt.phred64, batch_units)):
+                unit, opt.phred64, batch_units), self.devices[0])):
             self._pre_counter = u_lo * unit
             self._record_base = u_lo * unit
             r = self.complete_pack(self.submit_pack(pack1, pack2),
@@ -317,6 +328,7 @@ class PairEndRunner:
         from ..dist import multihost
         from .runner import replay_split_rotation, split_file_name
         opt = self.opt
+        self.devices = maybe_enable_sharding(self.local_devices)
         pack_reads = main_pack_reads(opt)
         split_streams = [("out1", opt.out1), ("out2", opt.out2)]
         plain_streams = [
@@ -330,9 +342,9 @@ class PairEndRunner:
                    for name, path in split_streams + plain_streams if path}
         self._make_ora_defer(opt)
         rotation = {}
-        for gidx, pack1, pack2 in prefetched(mh.iter_owned_pe(
+        for gidx, pack1, pack2 in prefetched(encode_packs(mh.iter_owned_pe(
                 opt.in1, opt.in2, opt.interleaved_input,
-                pack_reads, opt.phred64, 1)):
+                pack_reads, opt.phred64, 1), self.devices[0])):
             self._pre_counter = gidx * pack_reads
             self._record_base = gidx * pack_reads
             r = self.complete_pack(self.submit_pack(pack1, pack2),
@@ -410,6 +422,8 @@ class PairEndRunner:
         chunk; returns a handle for :meth:`complete_pack`."""
         opt = self.opt
         B = pack1.count
+        resolve_enc(pack1)
+        resolve_enc(pack2)
         keep = np.ones(B, bool)
         if opt.index_filter.enabled:
             keep = ~(index_filter_matches(opt, pack1, opt.index_filter.blacklist1)
@@ -425,6 +439,14 @@ class PairEndRunner:
                 cap //= 2
             self._rows = chunk_rows(B, cap)
         rows = self._rows
+        kw = dict(p=self.p1, p2=self.p2, **self.args)
+        # packed transport: encodings attached per pack by encode_packs in
+        # the prefetch thread (link-probe gated); both sides must share the
+        # mode, else the chunk goes raw
+        e1, e2 = pack1.enc, pack2.enc
+        mode = "raw"
+        if e1 is not None and e2 is not None and e1[0] == e2[0]:
+            mode = e1[0]
         # dispatch every chunk, then fold in order: the device runs ahead on
         # later chunks while the host fetches/folds earlier ones
         pending = []
@@ -433,11 +455,26 @@ class PairEndRunner:
             hi = min(lo + rows, B)
             n = hi - lo
             with stage("pe_dispatch"):
-                call = pe_pipeline_call(
-                    (pack1.seq[lo:hi], pack1.qual[lo:hi], pack1.lens[lo:hi],
-                     pack2.seq[lo:hi], pack2.qual[lo:hi], pack2.lens[lo:hi],
-                     start1[lo:hi], start2[lo:hi], keep[lo:hi]),
-                    self.device, p=self.p1, p2=self.p2, **self.args)
+                rest = (start1[lo:hi], start2[lo:hi], keep[lo:hi])
+                if mode == "b5":
+                    call = dispatch_on(
+                        self.devices, pe_pipeline_packed5,
+                        (e1[1][lo:hi], pack1.lens[lo:hi],
+                         e2[1][lo:hi], pack2.lens[lo:hi]) + rest,
+                        aux=(e1[2], e2[2]), enc_width1=pack1.seq.shape[1],
+                        enc_width2=pack2.seq.shape[1], **kw)
+                elif mode == "b8":
+                    call = dispatch_on(
+                        self.devices, pe_pipeline_packed,
+                        (e1[1][lo:hi], pack1.lens[lo:hi],
+                         e2[1][lo:hi], pack2.lens[lo:hi]) + rest, **kw)
+                else:
+                    call = dispatch_on(
+                        self.devices, pe_pipeline,
+                        (pack1.seq[lo:hi], pack1.qual[lo:hi], pack1.lens[lo:hi],
+                         pack2.seq[lo:hi], pack2.qual[lo:hi],
+                         pack2.lens[lo:hi]) + rest, **kw)
+                transport_chunks[mode] += 1
                 pending.append((lo, n, call))
             lo = hi
         return pack1, pack2, keep, start1, start2, pending

@@ -3,14 +3,19 @@ runners share.
 
 Copied from ``fqtool_tpu/pipeline/runner.py`` (which imports JAX at module
 level): the failed-stream tag catalog, the chunk-size buckets, the pack and
-write-unit framing, the pipelined drain of dispatched chunks, the index
+write-unit framing, the packed-transport encoding of the prefetch thread
+(``encode_packs``, ``resolve_enc``), the pipelined drain of dispatched
+chunks, the cross-pack overlap switch (``submit_and_emit``), the device
+split switch (``maybe_enable_sharding``), the index
 filter, the split-output writer, the split rotation replay and the log line,
 and ``SingleEndRunner`` whose fold, ORA sampling (deferred in multi-host
 runs), adapter/polyG/polyX accounting, failed stream, multi-host runs
 (``_run_mh``, ``_run_mh_split``; dist/multihost.py) and reports are
-unchanged.  Its dispatch uploads each chunk and runs the port's
-``se_pipeline`` on one torch device, with no padded rows.  Output record
-order is always input order (the reference run with one worker thread).
+unchanged.  Its
+dispatch uploads each chunk, on the raw, packed or 5-bit transport, and runs
+the port's ``se_pipeline`` on one torch device or split across several
+(dist/sharding.py), with no padded rows.  Output record order is always
+input order (the reference run with one worker thread).
 """
 
 from __future__ import annotations
@@ -18,22 +23,25 @@ from __future__ import annotations
 import os
 import sys
 import time
+from collections import Counter
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..config.options import Options
+from ..dist.sharding import dispatch_on
 from ..host import report_json
 from ..host.duplicate import DuplicateTable
 from ..host.filterresult import FilterResultAccumulator
+from ..host.profile import device_profile
 from ..host.stats import StatsAccumulator
 from ..host.tracing import stage
 from ..host.umi import process_umi
 from ..io.fastq import (AsyncWriter, OutputWriter, ReadPack,
                         format_selected, prefetch_iter)
 from ..ops.filters import FAILED_TYPES
-from .se import se_pipeline_call
+from .se import se_pipeline, se_pipeline_packed, se_pipeline_packed5
 
 # tag catalog for failed-stream suffixes: one buffer + per-code offsets
 _TAG_BUF = b"".join(t.encode() for t in FAILED_TYPES)
@@ -45,6 +53,96 @@ np.cumsum(_TAG_LEN[:-1], out=_TAG_OFF[1:])
 def failed_tags(results: np.ndarray):
     """(buf, off, len) tag triple for format_selected from result codes."""
     return _TAG_BUF, _TAG_OFF[results], _TAG_LEN[results]
+
+
+# chunks dispatched on each transport ("raw", "b8", "b5") since the last
+# reset; read by the tests and chip_smoke.py
+transport_chunks: Counter = Counter()
+
+
+def encode_packs(it, device="cuda"):
+    """Generator stage run inside the prefetch thread: attach the packed
+    transport encoding (ops/packed.py) to every ReadPack flowing through,
+    when the link probe to ``device`` enables packing (host/linkprobe.py).
+    The encode pass is independent of the host prep (UMI rewrites names
+    only; the index filter reads names only), so it overlaps the previous
+    pack's fold.
+
+    The resolved ``pack.enc`` is a mode tuple: ``("b5", packed, dict32)``
+    when FQTOOL_TPU_PACKED5 is not 0 and the pack's (base, qual) alphabet
+    fits the 5-bit dictionary transport (ops/packed.py::encode5_host), else
+    ``("b8", enc)``; None when the content is unencodable."""
+    from ..host.linkprobe import use_packed
+    from ..io.fastq import shared_pool
+    from ..ops.packed import encode5_host, encode_host
+
+    b5_ok = os.environ.get("FQTOOL_TPU_PACKED5", "1") == "1"
+
+    def enc_one(p):
+        with stage("pack_encode"):
+            enc = encode_host(p.seq, p.qual)
+            if enc is None:
+                return None
+            if b5_ok:
+                e5 = encode5_host(enc)
+                if e5 is not None:
+                    return ("b5",) + e5
+            return ("b8", enc)
+
+    it = iter(it)
+    while True:
+        # thread-side stage totals: tokenize = gunzip+parse+pack build,
+        # pack_encode = packed-transport LUT pass (both overlap the main loop)
+        with stage("tokenize"):
+            item = next(it, None)
+        if item is None:
+            return
+        if use_packed(device):
+            packs = (item,) if isinstance(item, ReadPack) else item
+            for p in packs:
+                if isinstance(p, ReadPack):
+                    # encode on the shared pool: overlaps the next pack's
+                    # tokenize; the dispatcher resolves the future
+                    p.enc = shared_pool().submit(enc_one, p)
+        yield item
+
+
+def resolve_enc(pack) -> None:
+    """Materialize a pack's in-flight transport encoding (see encode_packs)."""
+    if pack.enc is not None and hasattr(pack.enc, "result"):
+        pack.enc = pack.enc.result()
+
+
+def maybe_enable_sharding(devices: List[torch.device]) -> List[torch.device]:
+    """The devices a run's chunks are split across: all of ``devices`` when
+    there are two or more (disable with FQTOOL_TPU_SHARD=0), else the first.
+    Local devices only: in multi-host runs each host computes its own packs
+    on its own devices and only statistics cross hosts
+    (dist/multihost.py)."""
+    if os.environ.get("FQTOOL_TPU_SHARD", "1") == "0" or len(devices) < 2:
+        return list(devices[:1])
+    loginfo(f"data-parallel over {len(devices)} devices")
+    return list(devices)
+
+
+def submit_and_emit(items, submit, emit) -> None:
+    """``emit(submit(item))`` for each item in order.  With
+    FQTOOL_TPU_PACK_OVERLAP=1 (opt-in, as in fqtool_tpu) item k+1 is
+    submitted before item k is emitted, so its chunks run on the device while
+    the host fetches and folds item k; the chunks of one item are dispatched
+    before the first is fetched either way."""
+    overlap = os.environ.get("FQTOOL_TPU_PACK_OVERLAP", "0") == "1"
+    in_flight = None
+    for item in items:
+        submitted = submit(item)
+        if not overlap:
+            emit(submitted)
+            continue
+        if in_flight is not None:
+            emit(in_flight)
+        in_flight = submitted
+    if in_flight is not None:
+        emit(in_flight)
 
 
 def drain_pipelined(pending):
@@ -251,9 +349,12 @@ class SplitWriter:
 
 
 class SingleEndRunner:
-    def __init__(self, opt: Options, device="cuda"):
+    def __init__(self, opt: Options, devices=("cuda",)):
         self.opt = opt
-        self.device = torch.device(device)
+        # the run's local devices, and those its chunks go to (the first, or
+        # all of them once maybe_enable_sharding splits the chunks)
+        self.local_devices = [torch.device(d) for d in devices]
+        self.devices = self.local_devices[:1]
         self.params = opt.kernel_params(is_r2=False)
         self.pre_stats = self._make_stats()
         self.post_stats = self._make_stats()
@@ -295,6 +396,7 @@ class SingleEndRunner:
         if mh is not None:
             self._run_mh(mh)
             return
+        self.devices = maybe_enable_sharding(self.local_devices)
         split = SplitWriter(opt, paired=False) if opt.split.enabled else None
         out_writer = (AsyncWriter(opt.out1, opt.compression)
                       if opt.out1 and not opt.split.enabled else None)
@@ -328,8 +430,10 @@ class SingleEndRunner:
                     failed_writer.write(s)
 
         from ..io.headcache import iter_packs_cached
-        for pack in prefetched(iter_packs_cached(opt.in1, pack_reads, opt.phred64)):
-            emit(self.submit_pack(pack))
+        with device_profile(self.devices):
+            submit_and_emit(prefetched(encode_packs(
+                iter_packs_cached(opt.in1, pack_reads, opt.phred64),
+                self.devices[0])), self.submit_pack, emit)
         loginfo(f"processed {total} reads")
 
         with stage("writer_close"):
@@ -351,6 +455,7 @@ class SingleEndRunner:
         if opt.split.enabled:
             self._run_mh_split(mh)
             return
+        self.devices = maybe_enable_sharding(self.local_devices)
         writers = {}
         if opt.out1:
             writers["out1"] = mh.part_writer(opt.out1, opt.compression)
@@ -363,8 +468,9 @@ class SingleEndRunner:
             from ..host.ora_defer import DeferredOraSampler
             self._ora_post_defer = DeferredOraSampler(
                 opt.over_rep.sampling, self.post_stats)
-        for u_lo, pack in prefetched(
-                mh.iter_owned_se(opt.in1, unit, opt.phred64, batch_units)):
+        for u_lo, pack in prefetched(encode_packs(
+                mh.iter_owned_se(opt.in1, unit, opt.phred64, batch_units),
+                self.devices[0])):
             # ORA pre-sampling strides over the GLOBAL stream order; units
             # are fixed-size so the base index is unit_idx * unit.  (Post
             # sampling is deferred to the global replay below.)
@@ -417,6 +523,7 @@ class SingleEndRunner:
         (reference rotation: src/threadconfig.cpp:88-137)."""
         from ..dist import multihost
         opt = self.opt
+        self.devices = maybe_enable_sharding(self.local_devices)
         pack_reads = main_pack_reads(opt)
         w_split = mh.part_writer(opt.out1, opt.compression) if opt.out1 else None
         w_failed = (mh.part_writer(opt.failed_out, opt.compression)
@@ -426,8 +533,9 @@ class SingleEndRunner:
             self._ora_post_defer = DeferredOraSampler(
                 opt.over_rep.sampling, self.post_stats)
         rotation = {}
-        for gidx, pack in prefetched(
-                mh.iter_owned_se(opt.in1, pack_reads, opt.phred64, 1)):
+        for gidx, pack in prefetched(encode_packs(
+                mh.iter_owned_se(opt.in1, pack_reads, opt.phred64, 1),
+                self.devices[0])):
             self._pre_counter = gidx * pack_reads
             self._record_base = gidx * pack_reads
             outstr, failedstr, read_passed = self.complete_pack(
@@ -494,6 +602,7 @@ class SingleEndRunner:
         returns a handle for :meth:`complete_pack`."""
         opt = self.opt
         B = pack.count
+        resolve_enc(pack)
         keep = np.ones(B, bool)
         if opt.index_filter.enabled:
             keep = ~index_filter_matches(opt, pack, opt.index_filter.blacklist1)
@@ -510,16 +619,31 @@ class SingleEndRunner:
         if not self._rows:
             self._rows = chunk_rows(B, SE_CHUNK)
         rows = self._rows
+        kw = dict(p=self.params, adapter_r1=self.adapter_r1,
+                  use_start0=bool(opt.umi.enabled),
+                  with_kmer=bool(opt.kmer.enabled))
+        # packed transport: the encoding is attached to the pack by
+        # encode_packs in the prefetch thread (link-probe gated); None when
+        # packing is off or the content is unencodable
+        enc = pack.enc
+        mode = "raw" if enc is None else enc[0]
         pending = []  # one (rows, handle) per chunk, for drain_pipelined
         lo = 0
         while lo < B:
             hi = min(lo + rows, B)
-            call = se_pipeline_call(
-                (pack.seq[lo:hi], pack.qual[lo:hi], pack.lens[lo:hi],
-                 start0[lo:hi], keep[lo:hi]),
-                self.device, p=self.params, adapter_r1=self.adapter_r1,
-                use_start0=bool(opt.umi.enabled),
-                with_kmer=bool(opt.kmer.enabled))
+            rest = (pack.lens[lo:hi], start0[lo:hi], keep[lo:hi])
+            if mode == "b5":
+                call = dispatch_on(self.devices, se_pipeline_packed5,
+                                   (enc[1][lo:hi],) + rest, aux=(enc[2],),
+                                   enc_width=pack.seq.shape[1], **kw)
+            elif mode == "b8":
+                call = dispatch_on(self.devices, se_pipeline_packed,
+                                   (enc[1][lo:hi],) + rest, **kw)
+            else:
+                call = dispatch_on(self.devices, se_pipeline,
+                                   (pack.seq[lo:hi], pack.qual[lo:hi]) + rest,
+                                   **kw)
+            transport_chunks[mode] += 1
             pending.append((hi - lo, call))
             lo = hi
         return pack, start0, keep, pending

@@ -1,7 +1,8 @@
 """No source of the port imports the JAX package ``fqtool_tpu`` (or JAX).
 
 Parses, with ``ast``, every ``.py`` under ``fqtool_tpu_torch/``, plus
-``chip_smoke.py``, ``overlap_ab.py`` and the ``tests/`` helpers they import
+``chip_smoke.py``, ``overlap_ab.py``, ``cli_ab.py`` and the ``tests/``
+helpers they import
 (followed through their own relative imports), and fails on any import of ``fqtool_tpu``,
 ``fqtool_tpu.*``, ``jax`` or ``jaxlib``: ``import`` and ``from`` statements
 anywhere in the file, and ``importlib.import_module`` / ``__import__`` calls
@@ -18,7 +19,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 BLOCKED = ("fqtool_tpu", "jax", "jaxlib")
-SCRIPTS = [REPO / "chip_smoke.py", REPO / "overlap_ab.py"]
+SCRIPTS = [REPO / "chip_smoke.py", REPO / "overlap_ab.py", REPO / "cli_ab.py"]
 
 
 def _imports(tree: ast.AST):
@@ -39,7 +40,7 @@ def _imports(tree: ast.AST):
 
 
 def _smoke_helpers():
-    """tests/*.py that chip_smoke.py and overlap_ab.py import, and what
+    """tests/*.py that the scripts of SCRIPTS import, and what
     those import in turn from tests/ (relative imports)."""
     todo = list(SCRIPTS)
     seen = set()
@@ -71,8 +72,11 @@ def test_the_scan_sees_the_port_and_the_smoke_helpers():
     assert {"fqtool_tpu_torch/main.py", "fqtool_tpu_torch/config/cli.py",
             "fqtool_tpu_torch/io/fastq.py", "fqtool_tpu_torch/host/tracing.py",
             "fqtool_tpu_torch/dist/multihost.py", "fqtool_tpu_torch/dist/ingest.py",
-            "chip_smoke.py", "overlap_ab.py", "tests/oracle.py", "tests/torch_pairs.py",
-            "tests/torch_reads.py"} <= rel
+            "fqtool_tpu_torch/dist/sharding.py", "fqtool_tpu_torch/entry.py",
+            "fqtool_tpu_torch/ops/packed.py", "fqtool_tpu_torch/host/linkprobe.py",
+            "fqtool_tpu_torch/host/profile.py", "fqtool_tpu_torch/pipeline/blob.py",
+            "chip_smoke.py", "overlap_ab.py", "cli_ab.py", "tests/oracle.py",
+            "tests/torch_pairs.py", "tests/torch_reads.py"} <= rel
     bad = ast.parse("import fqtool_tpu.ops\nfrom jax import numpy\n"
                     "importlib.import_module('fqtool_tpu.config')\n")
     assert [n for _, n in _imports(bad)] == ["fqtool_tpu.ops", "jax",

@@ -4,9 +4,11 @@ on its own: it imports nothing of the JAX package ``fqtool_tpu``.
 A subprocess installs an import hook that refuses ``jax``, ``jaxlib``,
 ``fqtool_tpu`` and ``fqtool_tpu.*`` (not ``fqtool_tpu_torch``), then runs the
 port's CLI on a small paired or single-end input on the CPU (a paired-end
-run with every stage among them), imports ``chip_smoke`` and ``overlap_ab``
-(and with them everything the smoke run and the kernel A/B use), and checks
-that none of them was loaded on the way.
+run with every stage among them, and runs split over three CPU devices on
+the packed and one-blob transports), imports ``chip_smoke``, ``cli_ab``
+and ``overlap_ab`` (and with them everything the smoke run and the A/B
+scripts use), and checks that none of them was loaded on the way; and runs
+``python -m fqtool_tpu_torch.entry`` under the same hook.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ _SCRIPT = NO_JAX_HOOK + r"""
 from fqtool_tpu_torch.main import main
 rc = main(sys.argv[1:])
 import chip_smoke
+import cli_ab
 import overlap_ab
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
@@ -48,13 +51,16 @@ sys.exit(rc)
 """
 
 
-def _run_without_jax(tmp_path, argv):
+def _run_without_jax(tmp_path, argv, script=_SCRIPT, **env_extra):
     env = dict(os.environ, FQTOOL_TPU_TORCH_DEVICE="cpu",
                PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    proc = subprocess.run([sys.executable, "-c", _SCRIPT, *argv], cwd=tmp_path,
+    env.update(env_extra)
+    proc = subprocess.run([sys.executable, "-c", script, *argv], cwd=tmp_path,
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert (tmp_path / "report.json").exists()
+    if script is _SCRIPT:  # a CLI run writes its report
+        assert (tmp_path / "report.json").exists()
+    return proc
 
 
 def test_port_cli_runs_without_jax(tmp_path):
@@ -82,3 +88,31 @@ def test_port_paired_end_all_stages_run_without_jax(tmp_path):
         "-m", "--merge_output", "m.fq.gz", "-c", "-a", "-g", "-x", "-d",
         "--kmer", "-u", "--umi_location", "6", "--umi_length", "8"])
     assert (tmp_path / "m.fq.gz").stat().st_size > 0
+
+
+def test_port_sharded_transports_run_without_jax(tmp_path):
+    write_pairs(tmp_path / "r1.fq", tmp_path / "r2.fq", 500, seed=6, adapters=True)
+    proc = _run_without_jax(tmp_path, [
+        "-i", "r1.fq", "-I", "r2.fq", "-o", "o1.fq.gz", "-O", "o2.fq.gz",
+        "-m", "--merge_output", "m.fq.gz", "-c", "-d"],
+        FQTOOL_TPU_TORCH_DEVICE="cpu,cpu,cpu", FQTOOL_TPU_PACKED="1",
+        FQTOOL_TPU_INBLOB="1", FQTOOL_TPU_PACK_OVERLAP="1")
+    assert "data-parallel over 3 devices" in proc.stderr
+    assert (tmp_path / "m.fq.gz").stat().st_size > 0
+
+
+_ENTRY = NO_JAX_HOOK + r"""
+import runpy
+sys.argv = ["entry", "--devices", "cpu,cpu"]
+try:
+    runpy.run_module("fqtool_tpu_torch.entry", run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+"""
+
+
+def test_port_entry_module_runs_without_jax(tmp_path):
+    proc = _run_without_jax(tmp_path, [], script=_ENTRY)
+    assert "dryrun: SE+PE steps ran over 2 devices" in proc.stdout

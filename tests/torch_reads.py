@@ -11,6 +11,8 @@ numpy only: no JAX, no torch.
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 
 from .torch_pairs import fastq_bytes
@@ -43,6 +45,26 @@ def make_reads(n: int, seed: int, read_len: int = 151):
     q = np.clip(np.rint(q), 2, 41).astype(np.uint8)
     q[seq == ord("N")] = 2
     return seq, q + 33, flen
+
+
+QUAL_BINS = (2, 11, 21, 27, 32, 37)  # six Phred levels, as binned instruments report
+# quality byte -> its binned byte: the highest bin not above it (Q0-Q1 -> Q2)
+QUAL_BIN_TABLE = np.arange(256, dtype=np.uint8)
+for _q in range(94):
+    QUAL_BIN_TABLE[_q + 33] = max((b for b in QUAL_BINS if b <= _q),
+                                  default=QUAL_BINS[0]) + 33
+
+
+def bin_qualities(src, dst) -> Path:
+    """``src`` (plain FASTQ, single-end or one mate) with every quality
+    binned by ``QUAL_BIN_TABLE``: six quality values, so that a pack's
+    (base, quality) bytes fit the 32-entry dictionary of the 5-bit
+    transport."""
+    table = QUAL_BIN_TABLE.tobytes()
+    lines = Path(src).read_bytes().splitlines(keepends=True)
+    lines[3::4] = [line.translate(table) for line in lines[3::4]]
+    Path(dst).write_bytes(b"".join(lines))
+    return Path(dst)
 
 
 def write_reads(path, n: int, seed: int, read_len: int = 151,
