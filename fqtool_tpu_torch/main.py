@@ -223,7 +223,10 @@ def _run(opt: Options, devices: list) -> None:
 
 
 def run(opt: Options, devices: list) -> None:
+    """One CLI invocation, the root span ``job`` of the host trace
+    (host/tracing.py)."""
     from .dist import multihost
+    from .host import tracing
     from .io.fastq import set_worker_threads
 
     # -w sizes the shared host pool (deflate/format)
@@ -239,16 +242,18 @@ def run(opt: Options, devices: list) -> None:
     timing_path = os.environ.get("FQTOOL_TPU_TIMING_JSON")
     t_run_begin = time.time()
 
-    spooled = _spool_stdin(opt)
     try:
-        _run(opt, devices)
+        with tracing.job():
+            spooled = _spool_stdin(opt)
+            try:
+                _run(opt, devices)
+            finally:
+                if spooled is not None:
+                    os.unlink(spooled)
     finally:
-        if spooled is not None:
-            os.unlink(spooled)
         if timing_path:
             import json
 
-            from .host import tracing
             with open(timing_path, "w") as f:
                 json.dump({"t_run_begin": t_run_begin,
                            "t_done": time.time(),

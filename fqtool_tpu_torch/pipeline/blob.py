@@ -17,6 +17,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..host import tracing
+from ..host.tracing import stage
 from .device import PipelineResult
 
 
@@ -175,8 +177,9 @@ class BlobResult(PipelineResult):
 
     __slots__ = ("_spec",)
 
-    def __init__(self, blob: torch.Tensor, spec, device: torch.device):
-        super().__init__(blob, device)
+    def __init__(self, blob: torch.Tensor, spec, device: torch.device,
+                 begun=None):
+        super().__init__(blob, device, begun)
         self._spec = spec
 
     def _fetch(self) -> dict:
@@ -189,7 +192,12 @@ def dispatch_blob(body, arrays, aux, device: torch.device, **kw) -> BlobResult:
     allargs = tuple(np.asarray(a) for a in tuple(arrays) + tuple(aux))
     rows = allargs[0].shape[0]
     in_spec, in_sections = _build_input_spec(rows, allargs, n_aux=len(aux))
-    host = pack_input_blob(allargs, in_spec, in_sections)
-    blob = torch.as_tensor(host).to(device, non_blocking=True)
-    out = body(*unblob_inputs(blob, in_spec, in_sections), **kw)
-    return BlobResult(*blobify(out), device)
+    with stage("dispatch_h2d"):
+        host = pack_input_blob(allargs, in_spec, in_sections)
+        # the chunk's start on the card's timeline (host/tracing.py)
+        begun = tracing.card_begin(device)
+        blob = torch.as_tensor(host).to(device, non_blocking=True)
+    with stage("dispatch_launch"):
+        out = body(*unblob_inputs(blob, in_spec, in_sections), **kw)
+        result = BlobResult(*blobify(out), device, begun)
+    return result

@@ -29,6 +29,7 @@ from ..dist.sharding import dispatch_on
 from ..host import report_json
 from ..host.duplicate import DuplicateTable
 from ..host.filterresult import FilterResultAccumulator
+from ..host.profile import device_profile
 from ..host.stats import StatsAccumulator
 from ..host.tracing import stage
 from ..host.umi import process_umi
@@ -211,38 +212,42 @@ class PairEndRunner:
                                        has_unpaired1=w_unpaired1 is not None,
                                        want_failed=w_failed is not None)
                 total += submitted[0].count
-                split.write(r["out1"], r["out2"])
-                split.mark_processed(
-                    r["read_passed"] if opt.split.by_file_lines
-                    else submitted[0].count)
-                for w, k in ((w_unpaired1, "unpaired1"),
-                             (w_unpaired2, "unpaired2"),
-                             (w_merged, "merged"), (w_failed, "failed")):
-                    if w is not None:
-                        w.write(r[k])
+                with stage("pe_emit"):
+                    split.write(r["out1"], r["out2"])
+                    split.mark_processed(
+                        r["read_passed"] if opt.split.by_file_lines
+                        else submitted[0].count)
+                    for w, k in ((w_unpaired1, "unpaired1"),
+                                 (w_unpaired2, "unpaired2"),
+                                 (w_merged, "merged"), (w_failed, "failed")):
+                        if w is not None:
+                            w.write(r[k])
                 return
             r = self.complete_pack(submitted,
                                    has_unpaired1=w_unpaired1 is not None,
                                    want_failed=w_failed is not None,
                                    unit_reads=unit)
             total += submitted[0].count
-            # pair output requires BOTH writers (peprocessor.cpp:469-475):
-            # with only -o and no -O, passing pairs go nowhere
-            if w_out1 is not None and w_out2 is not None:
-                for s in r["out1"]:
-                    w_out1.write(s)
-                for s in r["out2"]:
-                    w_out2.write(s)
-            for w, k in ((w_unpaired1, "unpaired1"), (w_unpaired2, "unpaired2"),
-                         (w_merged, "merged"), (w_failed, "failed")):
-                if w is not None:
-                    for s in r[k]:
-                        w.write(s)
+            # the hand-off to the writers, a wait on a full queue included
+            with stage("pe_emit"):
+                # pair output requires BOTH writers (peprocessor.cpp:469-475):
+                # with only -o and no -O, passing pairs go nowhere
+                if w_out1 is not None and w_out2 is not None:
+                    for s in r["out1"]:
+                        w_out1.write(s)
+                    for s in r["out2"]:
+                        w_out2.write(s)
+                for w, k in ((w_unpaired1, "unpaired1"), (w_unpaired2, "unpaired2"),
+                             (w_merged, "merged"), (w_failed, "failed")):
+                    if w is not None:
+                        for s in r[k]:
+                            w.write(s)
 
         from ..io.headcache import iter_packs_paired_cached
-        submit_and_emit(prefetched(encode_packs(iter_packs_paired_cached(
-            opt.in1, opt.in2, opt.interleaved_input, pack_reads, opt.phred64),
-            self.devices[0])), lambda packs: self.submit_pack(*packs), emit)
+        with device_profile(self.devices):
+            submit_and_emit(prefetched(encode_packs(iter_packs_paired_cached(
+                opt.in1, opt.in2, opt.interleaved_input, pack_reads, opt.phred64),
+                self.devices[0])), lambda packs: self.submit_pack(*packs), emit)
         loginfo(f"processed {total} read pairs")
 
         with stage("writer_close"):
@@ -422,22 +427,24 @@ class PairEndRunner:
         chunk; returns a handle for :meth:`complete_pack`."""
         opt = self.opt
         B = pack1.count
-        resolve_enc(pack1)
-        resolve_enc(pack2)
-        keep = np.ones(B, bool)
-        if opt.index_filter.enabled:
-            keep = ~(index_filter_matches(opt, pack1, opt.index_filter.blacklist1)
-                     | index_filter_matches(opt, pack2, opt.index_filter.blacklist2))
-        start1, start2 = process_umi(opt, pack1, pack2)
+        with stage("pe_prep"):
+            resolve_enc(pack1)
+            resolve_enc(pack2)
+            keep = np.ones(B, bool)
+            if opt.index_filter.enabled:
+                keep = ~(index_filter_matches(opt, pack1, opt.index_filter.blacklist1)
+                         | index_filter_matches(opt, pack2, opt.index_filter.blacklist2))
+            start1, start2 = process_umi(opt, pack1, pack2)
 
-        if not self._rows:
-            # the chunk size of fqtool_tpu's runner (its TPU working-set cap
-            # included), so that chunks -- and the output framing -- agree
-            width = max(pack1.width, pack2.width)
-            cap = PE_CHUNK
-            while cap > 256 and cap * width * 24 > (1 << 31):
-                cap //= 2
-            self._rows = chunk_rows(B, cap)
+            if not self._rows:
+                # the chunk size of fqtool_tpu's runner (its TPU working-set
+                # cap included), so that chunks -- and the output framing --
+                # agree
+                width = max(pack1.width, pack2.width)
+                cap = PE_CHUNK
+                while cap > 256 and cap * width * 24 > (1 << 31):
+                    cap //= 2
+                self._rows = chunk_rows(B, cap)
         rows = self._rows
         kw = dict(p=self.p1, p2=self.p2, **self.args)
         # packed transport: encodings attached per pack by encode_packs in
@@ -537,27 +544,29 @@ class PairEndRunner:
                     parts, has_unpaired1, want_failed):
         opt = self.opt
         # stats --------------------------------------------------------
-        self.pre1.add_batch(out["pre1"])
-        self.pre2.add_batch(out["pre2"])
-        for key, acc in (("pre1_kmer", self.pre1), ("pre2_kmer", self.pre2),
-                         ("post1_kmer", self.post1), ("post2_kmer", self.post2),
-                         ("postM_kmer", self.post1)):
-            if key in out:
-                acc.add_kmer(out[key])
-        self.post1.add_batch(out["post1"])
-        self.post2.add_batch(out["post2"])
-        if "postM" in out:
-            self.post1.add_batch(out["postM"])
+        with stage("pe_fold_stats"):
+            self.pre1.add_batch(out["pre1"])
+            self.pre2.add_batch(out["pre2"])
+            for key, acc in (("pre1_kmer", self.pre1), ("pre2_kmer", self.pre2),
+                             ("post1_kmer", self.post1), ("post2_kmer", self.post2),
+                             ("postM_kmer", self.post1)):
+                if key in out:
+                    acc.add_kmer(out[key])
+            self.post1.add_batch(out["post1"])
+            self.post2.add_batch(out["post2"])
+            if "postM" in out:
+                self.post1.add_batch(out["postM"])
         if self.dup is not None:
-            d = out["dup"]
-            valid = np.asarray(d.valid).copy()
-            valid[n:] = False
-            self.dup.add_batch(
-                np.asarray(d.key), np.asarray(d.kmer_hi),
-                np.asarray(d.kmer_lo), np.asarray(d.gc), valid,
-                key_hi=None if d.key_hi is None else np.asarray(d.key_hi),
-                base=None if self._record_base is None
-                else self._record_base + lo)
+            with stage("pe_fold_dup"):
+                d = out["dup"]
+                valid = np.asarray(d.valid).copy()
+                valid[n:] = False
+                self.dup.add_batch(
+                    np.asarray(d.key), np.asarray(d.kmer_hi),
+                    np.asarray(d.kmer_lo), np.asarray(d.gc), valid,
+                    key_hi=None if d.key_hi is None else np.asarray(d.key_hi),
+                    base=None if self._record_base is None
+                    else self._record_base + lo)
 
         kchunk = keep[lo : lo + n]
         result1 = np.asarray(out["result1"])[:n]
@@ -602,201 +611,203 @@ class PairEndRunner:
             return mat2s[i, start : start + length].tobytes(), \
                 mat2q[i, start : start + length].tobytes()
 
-        # insert size --------------------------------------------------
-        if "isize" in out:
-            isz = np.asarray(out["isize"])[:n]
-            vmask = np.asarray(out["isize_valid"])[:n] & kchunk
-            self.insert_hist += np.bincount(
-                isz[vmask], minlength=len(self.insert_hist))
+        with stage("pe_fold_count"):
+            # insert size --------------------------------------------------
+            if "isize" in out:
+                isz = np.asarray(out["isize"])[:n]
+                vmask = np.asarray(out["isize_valid"])[:n] & kchunk
+                self.insert_hist += np.bincount(
+                    isz[vmask], minlength=len(self.insert_hist))
 
-        # correction counters -----------------------------------------
-        if "correction_matrix" in out:
-            self.filter_result.add_correction(np.asarray(out["correction_matrix"]))
-            c1 = np.asarray(out["corrected1"])[:n]
-            c2 = np.asarray(out["corrected2"])[:n]
-            # one per side with >=1 corrected base (basecorrector.cpp:62-68)
-            self.filter_result.inc_corrected_reads(
-                int(np.sum(c1 > 0) + np.sum(c2 > 0)))
+            # correction counters -----------------------------------------
+            if "correction_matrix" in out:
+                self.filter_result.add_correction(np.asarray(out["correction_matrix"]))
+                c1 = np.asarray(out["corrected1"])[:n]
+                c2 = np.asarray(out["corrected2"])[:n]
+                # one per side with >=1 corrected base (basecorrector.cpp:62-68)
+                self.filter_result.inc_corrected_reads(
+                    int(np.sum(c1 > 0) + np.sum(c2 > 0)))
 
-        # polyG / polyX events ----------------------------------------
-        for side in (1, 2):
-            gk = f"polyg_trimmed{side}"
-            if gk in out:
-                m = np.asarray(out[gk])[:n] & kchunk
-                self.filter_result.add_polyx_trimmed(
-                    np.full(n, 3), np.asarray(out[f"polyg_trim_len{side}"])[:n], m)
-            xk = f"polyx_trimmed{side}"
-            if xk in out:
-                m = np.asarray(out[xk])[:n] & kchunk
-                self.filter_result.add_polyx_trimmed(
-                    np.asarray(out[f"polyx_base{side}"])[:n],
-                    np.asarray(out[f"polyx_trim_len{side}"])[:n], m)
+            # polyG / polyX events ----------------------------------------
+            for side in (1, 2):
+                gk = f"polyg_trimmed{side}"
+                if gk in out:
+                    m = np.asarray(out[gk])[:n] & kchunk
+                    self.filter_result.add_polyx_trimmed(
+                        np.full(n, 3), np.asarray(out[f"polyg_trim_len{side}"])[:n], m)
+                xk = f"polyx_trimmed{side}"
+                if xk in out:
+                    m = np.asarray(out[xk])[:n] & kchunk
+                    self.filter_result.add_polyx_trimmed(
+                        np.asarray(out[f"polyx_base{side}"])[:n],
+                        np.asarray(out[f"polyx_trim_len{side}"])[:n], m)
 
-        # adapter events (bulk np.unique counting, host/accounting.py) ---
-        from ..host.accounting import span_counts, suffix_counts
-        if "ov_trimmed" in out:
-            ovm = np.asarray(out["ov_trimmed"])[:n] & kchunk
-            lb1 = np.asarray(out["len1_before_ov_trim"])[:n].astype(np.int64)
-            lb2 = np.asarray(out["len2_before_ov_trim"])[:n].astype(np.int64)
-            la1 = np.asarray(out["len_after_adapter1"])[:n].astype(np.int64)
-            rows = np.flatnonzero(ovm)
-            ol = la1[rows]  # both trimmed to overlap length
-            len_a1 = np.maximum(lb1[rows] - ol, 0)
-            len_a2 = np.maximum(lb2[rows] - ol, 0)
-            self.filter_result.add_adapter_trimmed_pairs_bulk(
-                span_counts(mat1s, rows, base1[rows] + ol, len_a1),
-                span_counts(mat2s, rows, base2[rows] + ol, len_a2),
-                len(rows), int(len_a1.sum() + len_a2.sum()))
-        for side, adapter in ((1, self.adapter_r1), (2, self.adapter_r2)):
-            k = f"adapter_found{side}"
-            if k in out:
-                found = np.asarray(out[k])[:n] & kchunk
-                pos = np.asarray(out[f"adapter_pos{side}"])[:n].astype(np.int64)
-                # length before by-sequence trim == length before overlap trim
-                # for non-ov-trimmed reads (the stage input length)
-                lb = (np.asarray(out[f"len{side}_before_ov_trim"])[:n]
-                      if f"len{side}_before_ov_trim" in out else
-                      np.asarray(out[f"len_after_adapter{side}"])[:n]
-                      ).astype(np.int64)
-                mat = mat1s if side == 1 else mat2s
-                basex = base1 if side == 1 else base2
-                idx = np.flatnonzero(found)
-                p = pos[idx]
-                neg, posi = idx[p < 0], idx[p >= 0]
-                counts = suffix_counts(adapter, -pos[neg])
-                counts += span_counts(mat, posi, basex[posi] + pos[posi],
-                                      lb[posi] - pos[posi])
-                self.filter_result.add_adapter_trimmed_bulk(
-                    counts, is_r2=(side == 2))
+            # adapter events (bulk np.unique counting, host/accounting.py) ---
+            from ..host.accounting import span_counts, suffix_counts
+            if "ov_trimmed" in out:
+                ovm = np.asarray(out["ov_trimmed"])[:n] & kchunk
+                lb1 = np.asarray(out["len1_before_ov_trim"])[:n].astype(np.int64)
+                lb2 = np.asarray(out["len2_before_ov_trim"])[:n].astype(np.int64)
+                la1 = np.asarray(out["len_after_adapter1"])[:n].astype(np.int64)
+                rows = np.flatnonzero(ovm)
+                ol = la1[rows]  # both trimmed to overlap length
+                len_a1 = np.maximum(lb1[rows] - ol, 0)
+                len_a2 = np.maximum(lb2[rows] - ol, 0)
+                self.filter_result.add_adapter_trimmed_pairs_bulk(
+                    span_counts(mat1s, rows, base1[rows] + ol, len_a1),
+                    span_counts(mat2s, rows, base2[rows] + ol, len_a2),
+                    len(rows), int(len_a1.sum() + len_a2.sum()))
+            for side, adapter in ((1, self.adapter_r1), (2, self.adapter_r2)):
+                k = f"adapter_found{side}"
+                if k in out:
+                    found = np.asarray(out[k])[:n] & kchunk
+                    pos = np.asarray(out[f"adapter_pos{side}"])[:n].astype(np.int64)
+                    # length before by-sequence trim == length before overlap trim
+                    # for non-ov-trimmed reads (the stage input length)
+                    lb = (np.asarray(out[f"len{side}_before_ov_trim"])[:n]
+                          if f"len{side}_before_ov_trim" in out else
+                          np.asarray(out[f"len_after_adapter{side}"])[:n]
+                          ).astype(np.int64)
+                    mat = mat1s if side == 1 else mat2s
+                    basex = base1 if side == 1 else base2
+                    idx = np.flatnonzero(found)
+                    p = pos[idx]
+                    neg, posi = idx[p < 0], idx[p >= 0]
+                    counts = suffix_counts(adapter, -pos[neg])
+                    counts += span_counts(mat, posi, basex[posi] + pos[posi],
+                                          lb[posi] - pos[posi])
+                    self.filter_result.add_adapter_trimmed_bulk(
+                        counts, is_r2=(side == 2))
 
-        # ORA pre sampling: every sampling-th pair in stream order; only the
-        # selected rows touch Python (peprocessor.cpp:272-274)
-        if opt.over_rep.enabled:
-            sampling = opt.over_rep.sampling
-            for i in range(-self._pre_counter % sampling, n, sampling):
-                self.pre1.add_over_rep_read(
-                    pack1.seq[lo + i, : pack1.lens[lo + i]].tobytes())
-                self.pre2.add_over_rep_read(
-                    pack2.seq[lo + i, : pack2.lens[lo + i]].tobytes())
-            self._pre_counter += n
+            # ORA pre sampling: every sampling-th pair in stream order; only the
+            # selected rows touch Python (peprocessor.cpp:272-274)
+            if opt.over_rep.enabled:
+                sampling = opt.over_rep.sampling
+                for i in range(-self._pre_counter % sampling, n, sampling):
+                    self.pre1.add_over_rep_read(
+                        pack1.seq[lo + i, : pack1.lens[lo + i]].tobytes())
+                    self.pre2.add_over_rep_read(
+                        pack2.seq[lo + i, : pack2.lens[lo + i]].tobytes())
+                self._pre_counter += n
 
         # routing ------------------------------------------------------
-        merge_on = opt.merge_pe.enabled
-        discard_unmerged = opt.merge_pe.discard_unmerged
-        if merge_on:
-            mergeable = np.asarray(out["mergeable"])[:n]
-            resultM = np.asarray(out["resultM"])[:n]
-            m_rlen = np.asarray(out["merged_rlen"])[:n]
-            m_len1 = np.asarray(out["merged_len1"])[:n]
-            m_len2 = np.asarray(out["merged_len2"])[:n]
-            # only rows actually written to the merged stream need content
-            m_need = (both & mergeable & kchunk
-                      & (resultM == PASS_FILTER))
-            with stage("pe_fold_assemble"):
-                m_seq, m_qual = _assemble_merged(
-                    mat1s, mat1q, mat2s, mat2q, front1, front2, rlen2,
-                    np.asarray(out["merged_ol"])[:n], m_len1, m_len2,
-                    sel=m_need)
+        with stage("pe_fold_route"):
+            merge_on = opt.merge_pe.enabled
+            discard_unmerged = opt.merge_pe.discard_unmerged
+            if merge_on:
+                mergeable = np.asarray(out["mergeable"])[:n]
+                resultM = np.asarray(out["resultM"])[:n]
+                m_rlen = np.asarray(out["merged_rlen"])[:n]
+                m_len1 = np.asarray(out["merged_len1"])[:n]
+                m_len2 = np.asarray(out["merged_len2"])[:n]
+                # only rows actually written to the merged stream need content
+                m_need = (both & mergeable & kchunk
+                          & (resultM == PASS_FILTER))
+                with stage("pe_fold_assemble"):
+                    m_seq, m_qual = _assemble_merged(
+                        mat1s, mat1q, mat2s, mat2q, front1, front2, rlen2,
+                        np.asarray(out["merged_ol"])[:n], m_len1, m_len2,
+                        sel=m_need)
 
-        sampling = opt.over_rep.sampling if opt.over_rep.enabled else 0
-        read_passed = 0
-        merged_count = 0
-        fr = self.filter_result
+            sampling = opt.over_rep.sampling if opt.over_rep.enabled else 0
+            read_passed = 0
+            merged_count = 0
+            fr = self.filter_result
 
-        if not merge_on:
-            # fast path: fully vectorized routing + native formatting
-            return self._route_vectorized(
-                mats, pack1, pack2, lo, n, kchunk, start1, start2,
+            if not merge_on:
+                # fast path: fully vectorized routing + native formatting
+                return self._route_vectorized(
+                    mats, pack1, pack2, lo, n, kchunk, start1, start2,
+                    result1, result2, rlen1, rlen2, dropped1, dropped2,
+                    front1, front2, parts, has_unpaired1,
+                    want_failed, sampling), 0
+
+            # vectorized merge routing: merged/unmerged records in pair order
+            # via a 3-rows-per-pair interleave; non-processed pairs (a NULL
+            # side, or unmergeable under --discard_unmerged) fall through to
+            # the standard routing (peprocessor.cpp:350-428)
+            m_proc = both & (mergeable | (not discard_unmerged))
+            pass1v = ~dropped1 & (result1 == PASS_FILTER)
+            pass2v = ~dropped2 & (result2 == PASS_FILTER)
+            m_sel = both & mergeable & kchunk
+            fr.add_filter_results(resultM[m_sel], n_each=2)
+            m_written = m_sel & (resultM == PASS_FILTER)
+            m_unm = both & ~mergeable & (not discard_unmerged) & kchunk
+            fr.add_filter_results(result1[m_unm], n_each=1)
+            fr.add_filter_results(result2[m_unm], n_each=1)
+            merged_count = int(m_written.sum())
+            read_passed = merged_count + int((m_unm & pass1v & pass2v).sum())
+
+            # ORA post sampling over the merged stream in emit order: merged
+            # reads and unmerged-kept r1 advance the post1 counter, unmerged-kept
+            # r2 the post2 counter (peprocessor.cpp:361-379)
+            idx1 = np.flatnonzero(m_written | (m_unm & pass1v))
+            idx2 = np.flatnonzero(m_unm & pass2v)
+            if sampling:
+                if self._ora_post1_defer is not None:
+                    # multi-host: spool the merged-stream emit order (merged read
+                    # content or unmerged-kept r1) for the deferred global replay
+                    from ..host.ora_defer import place_segments, ragged_gather
+                    key = self._record_base + lo
+                    mmask = m_written[idx1]
+                    lens1 = np.where(mmask, m_rlen[idx1],
+                                     rlen1[idx1]).astype(np.int64)
+                    flat1 = np.empty(int(lens1.sum()), np.uint8)
+                    offs = np.cumsum(lens1) - lens1
+                    im, iu = idx1[mmask], idx1[~mmask]
+                    place_segments(flat1, offs[mmask],
+                                   ragged_gather(m_seq, im,
+                                                 np.zeros(len(im), np.int64),
+                                                 m_rlen[im]),
+                                   m_rlen[im])
+                    place_segments(flat1, offs[~mmask],
+                                   ragged_gather(mat1s, iu, base1[iu], rlen1[iu]),
+                                   rlen1[iu])
+                    self._ora_post1_defer.add_interval(key, flat1, lens1)
+                    self._ora_post2_defer.add_interval(
+                        key, ragged_gather(mat2s, idx2, base2[idx2], rlen2[idx2]),
+                        rlen2[idx2])
+                else:
+                    for k in range(-self._post1_counter % sampling, len(idx1),
+                                   sampling):
+                        i = int(idx1[k])
+                        if m_written[i]:
+                            self.post1.add_over_rep_read(
+                                m_seq[i, : m_rlen[i]].tobytes())
+                        else:
+                            self.post1.add_over_rep_read(
+                                content1(i, base1[i], int(rlen1[i]))[0])
+                    for k in range(-self._post2_counter % sampling, len(idx2),
+                                   sampling):
+                        i = int(idx2[k])
+                        self.post2.add_over_rep_read(
+                            content2(i, base2[i], int(rlen2[i]))[0])
+            self._post1_counter += len(idx1)
+            self._post2_counter += len(idx2)
+
+            if m_written.any() or (m_unm & (pass1v | pass2v)).any():
+                # format on the shared pool (native formatter releases the GIL):
+                # overlaps the next chunk's fetch; every input is chunk-local or
+                # immutable, and complete_pack resolves the future in order
+                from ..io.fastq import shared_pool
+
+                def fmt(args=(pack1, pack2, lo, n, m_written, m_unm & pass1v,
+                              m_unm & pass2v, m_seq, m_qual, m_rlen, m_len1,
+                              m_len2, mats, front1, front2, rlen1, rlen2)):
+                    with stage("pe_fold_format_merged"):
+                        return self._format_merged_interleaved(*args)
+
+                parts["merged"].append(shared_pool().submit(fmt))
+
+            # in merge mode the fallthrough pairs never advance the post
+            # counters (peprocessor.cpp:387-400 guard), hence sampling=0
+            np_mask = kchunk & ~m_proc
+            rp2 = self._route_vectorized(
+                mats, pack1, pack2, lo, n, np_mask, start1, start2,
                 result1, result2, rlen1, rlen2, dropped1, dropped2,
                 front1, front2, parts, has_unpaired1,
-                want_failed, sampling), 0
-
-        # vectorized merge routing: merged/unmerged records in pair order
-        # via a 3-rows-per-pair interleave; non-processed pairs (a NULL
-        # side, or unmergeable under --discard_unmerged) fall through to
-        # the standard routing (peprocessor.cpp:350-428)
-        m_proc = both & (mergeable | (not discard_unmerged))
-        pass1v = ~dropped1 & (result1 == PASS_FILTER)
-        pass2v = ~dropped2 & (result2 == PASS_FILTER)
-        m_sel = both & mergeable & kchunk
-        fr.add_filter_results(resultM[m_sel], n_each=2)
-        m_written = m_sel & (resultM == PASS_FILTER)
-        m_unm = both & ~mergeable & (not discard_unmerged) & kchunk
-        fr.add_filter_results(result1[m_unm], n_each=1)
-        fr.add_filter_results(result2[m_unm], n_each=1)
-        merged_count = int(m_written.sum())
-        read_passed = merged_count + int((m_unm & pass1v & pass2v).sum())
-
-        # ORA post sampling over the merged stream in emit order: merged
-        # reads and unmerged-kept r1 advance the post1 counter, unmerged-kept
-        # r2 the post2 counter (peprocessor.cpp:361-379)
-        idx1 = np.flatnonzero(m_written | (m_unm & pass1v))
-        idx2 = np.flatnonzero(m_unm & pass2v)
-        if sampling:
-            if self._ora_post1_defer is not None:
-                # multi-host: spool the merged-stream emit order (merged read
-                # content or unmerged-kept r1) for the deferred global replay
-                from ..host.ora_defer import place_segments, ragged_gather
-                key = self._record_base + lo
-                mmask = m_written[idx1]
-                lens1 = np.where(mmask, m_rlen[idx1],
-                                 rlen1[idx1]).astype(np.int64)
-                flat1 = np.empty(int(lens1.sum()), np.uint8)
-                offs = np.cumsum(lens1) - lens1
-                im, iu = idx1[mmask], idx1[~mmask]
-                place_segments(flat1, offs[mmask],
-                               ragged_gather(m_seq, im,
-                                             np.zeros(len(im), np.int64),
-                                             m_rlen[im]),
-                               m_rlen[im])
-                place_segments(flat1, offs[~mmask],
-                               ragged_gather(mat1s, iu, base1[iu], rlen1[iu]),
-                               rlen1[iu])
-                self._ora_post1_defer.add_interval(key, flat1, lens1)
-                self._ora_post2_defer.add_interval(
-                    key, ragged_gather(mat2s, idx2, base2[idx2], rlen2[idx2]),
-                    rlen2[idx2])
-            else:
-                for k in range(-self._post1_counter % sampling, len(idx1),
-                               sampling):
-                    i = int(idx1[k])
-                    if m_written[i]:
-                        self.post1.add_over_rep_read(
-                            m_seq[i, : m_rlen[i]].tobytes())
-                    else:
-                        self.post1.add_over_rep_read(
-                            content1(i, base1[i], int(rlen1[i]))[0])
-                for k in range(-self._post2_counter % sampling, len(idx2),
-                               sampling):
-                    i = int(idx2[k])
-                    self.post2.add_over_rep_read(
-                        content2(i, base2[i], int(rlen2[i]))[0])
-        self._post1_counter += len(idx1)
-        self._post2_counter += len(idx2)
-
-        if m_written.any() or (m_unm & (pass1v | pass2v)).any():
-            # format on the shared pool (native formatter releases the GIL):
-            # overlaps the next chunk's fetch; every input is chunk-local or
-            # immutable, and complete_pack resolves the future in order
-            from ..io.fastq import shared_pool
-
-            def fmt(args=(pack1, pack2, lo, n, m_written, m_unm & pass1v,
-                          m_unm & pass2v, m_seq, m_qual, m_rlen, m_len1,
-                          m_len2, mats, front1, front2, rlen1, rlen2)):
-                with stage("pe_fold_format_merged"):
-                    return self._format_merged_interleaved(*args)
-
-            parts["merged"].append(shared_pool().submit(fmt))
-
-        # in merge mode the fallthrough pairs never advance the post
-        # counters (peprocessor.cpp:387-400 guard), hence sampling=0
-        np_mask = kchunk & ~m_proc
-        rp2 = self._route_vectorized(
-            mats, pack1, pack2, lo, n, np_mask, start1, start2,
-            result1, result2, rlen1, rlen2, dropped1, dropped2,
-            front1, front2, parts, has_unpaired1,
-            want_failed, 0)
-        return read_passed + rp2, merged_count
+                want_failed, 0)
+            return read_passed + rp2, merged_count
 
     def _route_vectorized(self, mats, pack1, pack2, lo, n, kc, start1, start2,
                           result1, result2, rlen1, rlen2, dropped1, dropped2,
@@ -1025,6 +1036,10 @@ class PairEndRunner:
         return peak
 
     def write_reports(self) -> None:
+        with stage("reports"):
+            self._write_reports()
+
+    def _write_reports(self) -> None:
         opt = self.opt
         dup_hist = dup_gc = None
         dup_rate = 0.0

@@ -5,11 +5,11 @@ fqtool_tpu_torch carries its own copies of ``config/``, ``io/``,
 ``native/fastq_core.cpp`` and the ``host/`` modules, so that it imports
 nothing of fqtool_tpu.  Each copy is its original with a header
 comment ("Copy of fqtool_tpu/...") put in front, so a fix made on one side
-only fails here.  Two copies are the named exceptions, compared as syntax
-trees with the dropped names left out and with their own module docstrings:
-``host/tracing.py`` drops the JAX ``device_profile`` and the ``_PROFILE_DIR``
-it reads; ``dist/multihost.py`` drops ``MultihostContext._init_jax`` (the
+only fails here.  One copy is the named exception, compared as a syntax
+tree with the dropped names left out and with its own module docstring:
+``dist/multihost.py`` drops ``MultihostContext._init_jax`` (the
 ``jax.distributed.initialize`` call) and the statement that calls it.
+``host/tracing.py`` is the port's own module, not a copy.
 """
 
 from __future__ import annotations
@@ -29,8 +29,7 @@ COPIES = [
     "host/accounting.py", "host/ora_defer.py", "host/filterresult.py",
     "host/report_json.py", "host/report_html.py", "dist/ingest.py"]
 # copy -> the names it drops from its original
-TREE_COPIES = {"host/tracing.py": {"device_profile", "_PROFILE_DIR"},
-               "dist/multihost.py": {"_init_jax"}}
+TREE_COPIES = {"dist/multihost.py": {"_init_jax"}}
 
 
 def _comment(rel: str) -> str:
