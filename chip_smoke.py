@@ -5,7 +5,7 @@ Phases, each of which stops the run with a nonzero exit on failure:
 
 1. the card's name and power limit (nvidia-smi), and whether the native
    FASTQ core (io/native.py) loaded or the host runs its pure-Python path;
-2. build the CUDA overlap kernel from csrc/overlap.cu with nvcc;
+2. build the CUDA kernels from csrc/overlap.cu and csrc/stats.cu with nvcc;
 3. the kernel against its plain PyTorch version, both on the card, output
    for output (exact: all outputs are integers), over several shapes and
    parameters and the edge cases of ``tests/torch_pairs.py`` (lowercase and
@@ -124,6 +124,7 @@ from fqtool_tpu_torch.ops import packed  # noqa: E402
 from fqtool_tpu_torch.ops import polyx as se_polyx  # noqa: E402
 from fqtool_tpu_torch.ops import qualcut as se_qualcut  # noqa: E402
 from fqtool_tpu_torch.ops import stats as se_stats  # noqa: E402
+from fqtool_tpu_torch.ops import stats_cuda  # noqa: E402
 from fqtool_tpu_torch.pipeline import pe as pe_pipe  # noqa: E402
 from fqtool_tpu_torch.pipeline import runner  # noqa: E402
 from fqtool_tpu_torch.pipeline import se as se_pipe  # noqa: E402
@@ -156,15 +157,16 @@ def phase_card() -> None:
 
 
 def phase_build() -> None:
-    so = overlap_cuda.library_path()
-    cached = so.exists()
-    t0 = time.perf_counter()
-    overlap_cuda.build()
-    log(f"kernel build: {time.perf_counter() - t0:.3f} s"
-        + (" (library already built)" if cached else " (nvcc)"))
-    for line in so.with_suffix(".log").read_text().splitlines():
-        if "ptxas info" in line or "spill" in line:  # registers, spills
-            log(line.strip())
+    for wrapper in (overlap_cuda, stats_cuda):
+        so = wrapper.library.path()
+        cached = so.exists()
+        t0 = time.perf_counter()
+        wrapper.library.load()
+        log(f"kernel build {so.name}: {time.perf_counter() - t0:.3f} s"
+            + (" (library already built)" if cached else " (nvcc)"))
+        for line in so.with_suffix(".log").read_text().splitlines():
+            if "ptxas info" in line or "spill" in line:  # registers, spills
+                log(line.strip())
 
 
 def _case(B, L1, L2, seed, zero_frac=0.0):
@@ -244,10 +246,10 @@ def _overlap_compares(r1, r2, res, require: int) -> int:
     return int(n1 + n2 + res.overlap_len.long().clamp(min=0).sum())
 
 
-def _kernel_device_ms(fn, reps=20):
-    """Mean device time of the ``overlap_kernel`` activities of ``reps``
-    calls of ``fn`` (torch.profiler), or None when the profiler saw fewer
-    than one such activity per call."""
+def _kernel_device_ms(fn, reps=20, kernel="overlap_kernel"):
+    """Mean device time of the activities named ``kernel`` of ``reps`` calls
+    of ``fn`` (torch.profiler), or None when the profiler saw fewer than one
+    such activity per call."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -256,7 +258,7 @@ def _kernel_device_ms(fn, reps=20):
             fn()
         torch.cuda.synchronize()
     us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == DeviceType.CUDA and "overlap_kernel" in e.name]
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
     return sum(us) / reps / 1e3 if len(us) == reps else None
 
 
@@ -313,6 +315,98 @@ def phase_kernel() -> dict:
             "max_abs_err": max_err, "ms": ms, "device_ms": device_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
+
+
+def _stats_case(B: int, L: int, seed: int):
+    """A plane as the pipeline hands it to ``stat_batch``: ACGTN bases,
+    qualities '#'-'J', lengths L - 1 (a 151-base read in a 152-wide plane, a
+    302-base merged read in a 304-wide one) on eight rows of ten and 0 to L
+    on the rest, 90 % of the rows selected."""
+    rng = np.random.default_rng(seed)
+    seq = np.frombuffer(b"ACGTN", np.uint8)[rng.integers(0, 5, (B, L))]
+    qual = rng.integers(35, 75, (B, L)).astype(np.uint8)
+    rlen = np.where(rng.random(B) < 0.8, L - 1,
+                    rng.integers(0, L + 1, B)).astype(np.int32)
+    seq[np.arange(L)[None, :] >= rlen[:, None]] = 0
+    qual[np.arange(L)[None, :] >= rlen[:, None]] = 0
+    dev = torch.device("cuda")
+    return tuple(torch.as_tensor(a).to(dev)
+                 for a in (seq, qual, rlen, rng.random(B) < 0.9))
+
+
+def phase_stats_kernel() -> dict:
+    """The stats kernel through ``stat_batch`` against ``stat_batch_plain``,
+    both on the card, every field exact, at a chunk's 16,384 x 152 planes and
+    its 16,384 x 304 merged plane; per call the wrapper's CUDA-event time,
+    the kernel's device-only time and the plain op's event time, and the
+    bound: the bytes it moves at 3.35 TB/s.  Returns the kernel's entry of
+    the kernels line (the 152-wide figures; the 304-wide ones under
+    ``merged_304``)."""
+    figures = {}
+    for L in (152, 304):
+        args = _stats_case(PE_CHUNK, L, seed=L)
+        for select in (args[3], None):
+            got = se_stats.stat_batch(*args[:3], select)
+            ref = se_stats.stat_batch_plain(*args[:3], select)
+            bad = [name for name, a, b in zip(ref._fields, got, ref)
+                   if a.dtype != b.dtype or not torch.equal(a, b)]
+            if bad:
+                raise SystemExit(f"stats kernel disagrees with the plain op at "
+                                 f"{PE_CHUNK} x {L} (select "
+                                 f"{'given' if select is not None else 'none'}): {bad}")
+        log(f"stats kernel vs plain {PE_CHUNK} x {L}, select given and none: every "
+            "field equal (tolerance 0: integer outputs)")
+        kern = lambda: se_stats.stat_batch(*args)  # noqa: E731
+        plain = lambda: se_stats.stat_batch_plain(*args)  # noqa: E731
+        # CUDA-event times first, since launches are slower once the profiler
+        # has run
+        t_plain = [_time_ms(plain)]
+        t_kern = [_time_ms(kern) for _ in range(2)]
+        t_plain.append(_time_ms(plain))
+        t_dev = [_kernel_device_ms(kern, kernel="stat_batch_kernel") for _ in range(2)]
+        device_ms = None if None in t_dev else min(t_dev)
+        B = PE_CHUNK
+        nbytes = 2 * B * L + 4 * B + B + 4 * (34 * L + 2)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        share = (f"{bound_ms / device_ms:.4f} of the device-only time"
+                 if device_ms else "device-only time not measured")
+        log(f"stats per {B} x {L} plane: stat_batch {t_kern} ms (CUDA events, 20 "
+            f"calls), kernel device-only {t_dev} ms (torch.profiler, "
+            f"stat_batch_kernel over 20 launches), plain {t_plain} ms; bound "
+            f"{nbytes} bytes at 3.35 TB/s = {bound_ms * 1e3:.3f} us = {share}")
+        figures[L] = {"ms": min(t_kern), "device_ms": device_ms,
+                      "plain_ms": min(t_plain), "bound_ms": bound_ms}
+    return {"name": "stat_batch", "route": "cuda",
+            "source": "fqtool_tpu_torch/csrc/stats.cu", "replaces": None,
+            "max_abs_err": 0, **figures[152], "bound_by": "bytes",
+            "library_ms": None, "merged_304": figures[304]}
+
+
+def _reset_launches() -> None:
+    """Zero both kernels' launch counters and the chunk count of
+    ``runner.transport_chunks`` before a main-path run."""
+    overlap_cuda.launches = 0
+    stats_cuda.launches = 0
+    runner.transport_chunks.clear()
+
+
+STATS_LAUNCHES = []  # the stats kernel's launches of each checked run
+
+
+def _check_stats_launches(tag: str, per_chunk: int, launches=None, chunks=None,
+                          parts: int = 1) -> None:
+    """One stats kernel launch per ``stat_batch`` call: ``per_chunk`` a chunk
+    on each of ``parts`` devices over the chunks dispatched since
+    ``_reset_launches`` (or the given launches and chunks of ranks)."""
+    if launches is None:
+        launches = stats_cuda.launches
+        chunks = sum(runner.transport_chunks.values())
+    log(f"{tag}: stats kernel launches {launches} for {chunks} chunks "
+        f"({per_chunk} a chunk{f' on each of {parts} devices' if parts > 1 else ''})")
+    if not chunks or launches != per_chunk * parts * chunks:
+        raise SystemExit(f"{tag}: {launches} stats kernel launches for {chunks} "
+                         f"chunks, {per_chunk * parts} a chunk expected")
+    STATS_LAUNCHES.append(launches)
 
 
 def _run_cli(work: Path, r1: Path, r2: Path, device: str, tag: str) -> dict:
@@ -379,10 +473,11 @@ def phase_main(work: Path, pairs: int) -> tuple:
     t0 = time.perf_counter()
     write_pairs(r1, r2, pairs, seed=2024)
     log(f"generated {pairs} pairs of 2x151 bp in {time.perf_counter() - t0:.3f} s")
-    overlap_cuda.launches = 0
+    _reset_launches()
     wall, out = _traced("pe_qualtrim",
                         lambda: _run_cli(work, r1, r2, "cuda", "cuda_full"))
     launches = overlap_cuda.launches
+    _check_stats_launches("pe_qualtrim", 4)
     chunks = -(-pairs // PE_CHUNK)
     rep = json.loads(out["json"].read_text())
     ins = rep["InsertSize"]
@@ -588,11 +683,12 @@ def phase_pe_main(work: Path, pairs: int) -> tuple:
     chunks = -(-pairs // PE_CHUNK)
     total = 0
     rates = {}
-    for tag, flags, calls in (("pe_merge_corr", PE_MERGE_CORR + PE_OUTS, 2),
-                              ("pe_full", PE_FULL, 1)):
-        overlap_cuda.launches = 0
+    for tag, flags, calls, stat_calls in (
+            ("pe_merge_corr", PE_MERGE_CORR + PE_OUTS, 2, 5), ("pe_full", PE_FULL, 1, 4)):
+        _reset_launches()
         wall, d = _traced(tag, lambda: _run_pe_cli(work, tag, (r1, r2), flags, "cuda"))
         launches = overlap_cuda.launches
+        _check_stats_launches(tag, stat_calls)
         total += launches
         rates[tag] = pairs / wall
         rep = json.loads((d / "report.json").read_text())
@@ -838,7 +934,9 @@ def phase_se_main(work: Path, reads: int) -> Path:
     for tag, src, n, flags in (
             ("se_qualtrim", fq, reads, SE_QUALTRIM + ["--failed_out", "failed.fq.gz"]),
             ("se_all", half, reads // 2, SE_ALL + ["--failed_out", "failed.fq.gz"])):
+        _reset_launches()
         wall, d = _traced(tag, lambda: _run_se_cli(work, src, flags, "cuda", tag))
+        _check_stats_launches(tag, 2)
         rep = json.loads((d / "report.json").read_text())
         log(f"{tag} main path: {n} reads in {wall:.3f} s = {n / wall:.1f} reads/s "
             f"({' '.join(flags)})")
@@ -899,19 +997,21 @@ MH_SPLIT = ["-s", "--split_file_number", "4", "--max_item_in_pack", "500", "-q",
 
 def rank_main(argv) -> int:
     """One rank of a multi-host run: the port's CLI under torch.profiler
-    (device activity only); prints its overlap kernel launches, host stage
-    split and busy ms on the card as the last line of its output."""
+    (device activity only); prints both kernels' launches, its chunks, host
+    stage split and busy ms on the card as the last line of its output."""
     on_card = torch.device(os.environ["FQTOOL_TPU_TORCH_DEVICE"]).type == "cuda"
     act = torch.profiler.ProfilerActivity
-    overlap_cuda.launches = 0
+    _reset_launches()
     tracing.reset()
     with torch.profiler.profile(activities=[act.CUDA if on_card else act.CPU]) as prof:
         rc = cli_main(argv)
         if on_card:
             torch.cuda.synchronize()
     busy_ms, _ = _device_busy(prof)
-    print(json.dumps({"launches": overlap_cuda.launches, "busy_ms": busy_ms,
-                      "stages": tracing.snapshot()}), flush=True)
+    print(json.dumps({"launches": overlap_cuda.launches,
+                      "stats_launches": stats_cuda.launches,
+                      "chunks": sum(runner.transport_chunks.values()),
+                      "busy_ms": busy_ms, "stages": tracing.snapshot()}), flush=True)
     return rc
 
 
@@ -1010,19 +1110,21 @@ def phase_multihost(work: Path, a1: Path, a2: Path, pairs: int, fq: Path, reads:
     total = 0
     s1, s2 = work / "as1.fq", work / "as2.fq"  # phase 8's first pairs
     single = _run_pe_cli(work, "mh_split_single", (s1, s2), MH_SPLIT, device)
-    # cold start: both ranks build the kernel library at once
-    shutil.rmtree(overlap_cuda.library_path().parent, ignore_errors=True)
+    # cold start: both ranks build the kernel libraries at once
+    for wrapper in (overlap_cuda, stats_cuda):
+        shutil.rmtree(wrapper.library.path().parent, ignore_errors=True)
     runs = [("pe_split_ora", ["-i", s1, "-I", s2, "-o", "o1.fq.gz", "-O", "o2.fq.gz",
                               *MH_SPLIT], single, 2, subset, "pairs", 1,
-             -(-subset // 500)),
+             -(-subset // 500), 4),
             *((tag, ["-i", a1, "-I", a2, "-o", "o1.fq.gz", "-O", "o2.fq.gz", *flags],
-               work / tag, 2, pairs, "pairs", calls, -(-pairs // PE_CHUNK))
-              for tag, flags, calls in (("pe_merge_corr", PE_MERGE_CORR + PE_OUTS, 2),
-                                        ("pe_full", PE_FULL, 1))),
+               work / tag, 2, pairs, "pairs", calls, -(-pairs // PE_CHUNK), stat_calls)
+              for tag, flags, calls, stat_calls in (
+                  ("pe_merge_corr", PE_MERGE_CORR + PE_OUTS, 2, 5),
+                  ("pe_full", PE_FULL, 1, 4))),
             ("se_qualtrim", ["-i", fq, "-o", "out.fq.gz", *SE_QUALTRIM,
                              "--failed_out", "failed.fq.gz"],
-             work / "se_qualtrim", 4, reads, "reads", 0, 0)]
-    for tag, argv, ref, nprocs, n, unit, calls, chunks in runs:
+             work / "se_qualtrim", 4, reads, "reads", 0, 0, 2)]
+    for tag, argv, ref, nprocs, n, unit, calls, chunks, stat_calls in runs:
         argv = [*argv, "-J", "report.json", "-H", "report.html"]
         ranks, wall = _run_ranks(work / f"mh_{tag}", argv, nprocs, device)
         _log_ranks(tag, n, unit, ranks, wall)
@@ -1036,6 +1138,14 @@ def phase_multihost(work: Path, a1: Path, a2: Path, pairs: int, fq: Path, reads:
             raise SystemExit(f"{tag}: the ranks launched the overlap kernel "
                              f"{[r['launches'] for r in ranks]} times, "
                              f"{calls * chunks} in all expected ({calls} a chunk)")
+        if device == "cuda":
+            if any(r["stats_launches"] != stat_calls * r["chunks"] for r in ranks):
+                raise SystemExit(f"{tag}: the ranks launched the stats kernel "
+                                 f"{[r['stats_launches'] for r in ranks]} times for "
+                                 f"{[r['chunks'] for r in ranks]} chunks")
+            _check_stats_launches(f"{tag} as {nprocs} ranks", stat_calls,
+                                  sum(r["stats_launches"] for r in ranks),
+                                  sum(r["chunks"] for r in ranks))
         total += launches
     return total
 
@@ -1053,10 +1163,12 @@ def phase_devices(work: Path, a1: Path, a2: Path, pairs: int,
     two = TWO_DEVICES if dev == "cuda" else f"{dev},{dev}"
     chunks = -(-pairs // PE_CHUNK)
     tag = "pe_merge_corr_x2"
-    overlap_cuda.launches = 0
+    _reset_launches()
     wall, d = _traced(tag, lambda: _run_pe_cli(
         work, tag, (a1, a2), PE_MERGE_CORR + PE_OUTS, two))
     launches = overlap_cuda.launches
+    if dev == "cuda":
+        _check_stats_launches(tag, 5, parts=2)
     names = _same_outputs(tag, work / "pe_merge_corr", d)
     log(f"{tag} over {two}: {pairs} pairs in {wall:.3f} s = "
         f"{pairs / wall:.1f} pairs/s (phase 7 on one device, same call: "
@@ -1068,7 +1180,10 @@ def phase_devices(work: Path, a1: Path, a2: Path, pairs: int,
                          "expected (2 parts x 2 calls a chunk)")
     sub = work / "se_sub.fq"  # phase 11's reads
     d1 = _run_se_cli(work, sub, SE_ALL_FAILED, dev, "dev_se_all_one")
+    _reset_launches()
     d2 = _run_se_cli(work, sub, SE_ALL_FAILED, two, "dev_se_all_x2")
+    if dev == "cuda":
+        _check_stats_launches("se_all_x2", 2, parts=2)
     names = _same_outputs("se_all_x2", d1, d2)
     log(f"se_all over {two} on phase 11's reads: {len(names)} output files "
         "byte-identical to the one-device run, reports equal")
@@ -1156,16 +1271,17 @@ def phase_transports(work: Path, fq: Path, subset: int, se_reads: int,
     }
     total = 0
     for tag, (n, run) in runs.items():
-        calls = 1 if tag == "pe_full" else 0
+        calls, stat_calls = (1, 4) if tag == "pe_full" else (0, 2)
         chunks = -(-n // PE_CHUNK)
         variants = [("default", ({}, "raw"))] + list(TRANSPORTS.items())
         for name, (env, mode) in variants:
-            runner.transport_chunks.clear()
-            overlap_cuda.launches = 0
+            _reset_launches()
             t0 = time.perf_counter()
             d = _with_env(env, lambda: run(f"tr_{tag}_{name}"))
             secs = time.perf_counter() - t0
             launches = overlap_cuda.launches
+            if dev == "cuda":
+                _check_stats_launches(f"{tag} {name}", stat_calls)
             took = dict(runner.transport_chunks)
             total += launches
             if name == "default":
@@ -1210,6 +1326,7 @@ def main() -> int:
     phase_card()
     phase_build()
     entry = phase_kernel()
+    stats_entry = phase_stats_kernel()
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -1231,8 +1348,9 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     entry["launches"] = launches
+    stats_entry["launches"] = sum(STATS_LAUNCHES)
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, stats_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

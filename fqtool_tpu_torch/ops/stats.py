@@ -3,8 +3,10 @@
 Counterpart of ``fqtool_tpu/ops/stats.py`` ``stat_batch`` and ``kmer_counts`` (reference:
 src/stats.cpp:237-295): per-cycle Q20/Q30/content/quality histograms binned
 by ``base & 0x07``.  Q20/Q30 use strict ``>`` against '5'/'?'
-(stats.cpp:250-259).  One int64 scatter-add over the ``(base & 7, cycle)``
-bins, cast to int32 like the JAX results.
+(stats.cpp:250-259).  ``stat_batch`` sends CUDA tensors to the hand-written
+kernel of ``stats_cuda`` (one launch a call); on CPU tensors it is plain
+torch (``stat_batch_plain``), one int64 scatter-add over the ``(base & 7,
+cycle)`` bins, cast to int32 like the JAX results.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import stats_cuda
 from .common import Q20_CHAR, Q30_CHAR, positions, seq2int_codes, valid_mask
 
 
@@ -32,8 +35,29 @@ def stat_batch(seq: torch.Tensor, qual: torch.Tensor, rlen: torch.Tensor,
     """Accumulate per-cycle statistics over a batch.
 
     ``select`` (bool [B]) restricts which reads contribute (post-filter stats
-    only cover passing reads, seprocessor.cpp:342-345).
+    only cover passing reads, seprocessor.cpp:342-345).  A CUDA tensor goes
+    to the kernel (``stats_cuda.stat_batch_cuda``), which raises if it cannot
+    be built or launched: there is no fallback.  A CPU tensor goes to
+    ``stat_batch_plain``.
     """
+    if not seq.is_cuda:
+        return stat_batch_plain(seq, qual, rlen, select)
+    L = seq.shape[1]
+    out = stats_cuda.stat_batch_cuda(
+        seq.contiguous(), qual.contiguous(), rlen.contiguous(),
+        None if select is None else select.contiguous())
+    q20, q30, content, quality = out[: 32 * L].view(4, 8, L).unbind()
+    total, total_qual = out[32 * L : 34 * L].view(2, L).unbind()
+    reads, length_sum = out[34 * L :].unbind()
+    return BatchStats(
+        cycle_q20=q20, cycle_q30=q30, cycle_content=content,
+        cycle_quality=quality, cycle_total=total, cycle_total_qual=total_qual,
+        reads=reads, length_sum=length_sum)
+
+
+def stat_batch_plain(seq: torch.Tensor, qual: torch.Tensor, rlen: torch.Tensor,
+                     select: Optional[torch.Tensor] = None) -> BatchStats:
+    """``stat_batch`` in plain torch, on any device."""
     B, L = seq.shape
     mask = valid_mask(rlen, L)
     if select is not None:

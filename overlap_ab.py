@@ -36,6 +36,7 @@ import importlib.util
 import json
 import re
 import sys
+import types
 from pathlib import Path
 
 import torch
@@ -136,23 +137,27 @@ def _load_wrapper(name: str, checkout: Path):
     sys.modules[spec.name] = pkg
     spec.loader.exec_module(pkg)
     mod = importlib.import_module(f"ab_{name}.overlap_cuda")
-    mod.BUILD_ROOT = OUT / "kernels"
+    if hasattr(mod, "library"):
+        mod.library.build_root = OUT / "kernels"
+    else:  # a checkout from before ops/kernel_lib.py
+        mod.BUILD_ROOT = OUT / "kernels"
+        mod.library = types.SimpleNamespace(load=mod.build, path=mod.library_path)
     return mod
 
 
 def wrappers(checkouts) -> dict:
-    """name -> overlap_cuda module whose build() builds that kernel."""
+    """name -> overlap_cuda module whose library.load() builds that kernel."""
     mods = {}
     for name, text in variant_sources().items():
         src = OUT / name / "overlap.cu"
         src.parent.mkdir(parents=True, exist_ok=True)
         src.write_text(text)
         mods[name] = _load_wrapper(name, ROOT)
-        mods[name]._SRC = src
+        mods[name].library.src = src
     for name, path in checkouts:
         mods[name] = _load_wrapper(name, path.resolve())
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
-        list(pool.map(lambda m: m.build(), mods.values()))  # nvcc in parallel
+        list(pool.map(lambda m: m.library.load(), mods.values()))  # nvcc in parallel
     return mods
 
 
@@ -179,7 +184,7 @@ def main() -> int:
     smoke.phase_card()
     mods = wrappers(checkouts)
     for name, mod in mods.items():
-        for line in mod.library_path().with_suffix(".log").read_text().splitlines():
+        for line in mod.library.path().with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"{name}: {line.strip()}", flush=True)
 
