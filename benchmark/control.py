@@ -34,9 +34,9 @@ def main(argv=None) -> int:
     expected = run.reference_of(config).expected
     for seed in args.seeds:
         t0 = time.perf_counter()
-        pairs = gen.make(law, job["job_pairs"], seed)
-        ref = expected(pairs, config, args.device)
-        ctl = expected(pairs, config, args.device, broken=job["control"])
+        records = gen.make(law, job[f"job_{gen.UNIT}"], seed)
+        ref = expected(records, config, args.device)
+        ctl = expected(records, config, args.device, broken=job["control"])
         recs = sum(records_differ(ctl.stream_bytes(s), ref.stream_bytes(s))
                    for s in config["streams"])
         counters = check.counters_differ(check.flatten(ctl.report()),

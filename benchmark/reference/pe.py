@@ -14,6 +14,9 @@ for more.
 (``control.py``, the cell file's ``control``): ``adapter_trim`` skips the
 adapter trim by overlap, ``correction`` the base correction,
 ``quality_filter`` the quality filter.
+
+``overlap_scans(config)`` gives ``run.py`` the overlap scans a pair takes,
+from which it counts the overlap kernel's bytes.
 """
 
 from __future__ import annotations
@@ -36,6 +39,12 @@ from .stats import CycleStats
 
 BLOCK = 32_768
 PASS = ops_filters.PASS_FILTER
+
+
+def overlap_scans(config: dict) -> int:
+    """Overlap scans a pair takes on the main path: one, and one more on the
+    merged reads with ``-m``."""
+    return 2 if config["reference_params"]["merge"] else 1
 
 
 def filter_params(rp: dict) -> SimpleNamespace:

@@ -4,10 +4,11 @@
 
 A cell (``BENCHMARK.json`` ``workloads``) names a configuration
 (``configs/<config>.json``: the CLI argv and the reference's parameters) and
-its own file (``workloads/<cell>.json``: the traffic's parameters, the pairs a
-job reads and whether a job is a call of ``fqtool_tpu_torch.main.main`` in
-this process or a fresh process through ``child.py``).  The run makes the
-job's input from the seed and runs one warm job on it (set-up), then runs
+its own file (``workloads/<cell>.json``: the traffic's generator and
+parameters, a job's size in the generator's unit and whether a job is a call
+of ``fqtool_tpu_torch.main.main`` in this process or a fresh process through
+``child.py``).  The run makes the job's input files (the generator's
+``INPUTS``) from the seed and runs one warm job on them (set-up), then runs
 jobs back to back until ``--seconds`` have passed and the job under way has
 ended (the window).  With ``--trace 0`` it reports the cell's end-to-end metrics, with
 ``--trace 1`` its per-layer metrics, each read by ``metrics/<name>.py`` from
@@ -91,6 +92,13 @@ def reference_of(config: dict):
     return importlib.import_module(f"reference.{config['reference']}")
 
 
+def job_argv(config: dict, d: Path, inputs) -> list:
+    """The configuration's argv for a job writing to ``d``: ``{dir}``, and one
+    placeholder per input file, named by its stem (``r1.fq.gz``: ``{r1}``)."""
+    fields = {Path(p).name.split(".")[0]: p for p in inputs}
+    return [a.format(dir=d, **fields) for a in config["argv"]]
+
+
 def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in list(sys.modules)}
                   & set(FORBIDDEN))
@@ -120,7 +128,8 @@ def set_environment(trace: bool, device: str) -> None:
 # jobs
 
 class Jobs:
-    """Runs a cell's jobs, each on hard links of the same input files."""
+    """Runs a cell's jobs, each on hard links of the same input files
+    (``inputs``, named as the generator's ``INPUTS``)."""
 
     def __init__(self, cell: dict, work: Path, inputs, device: str, profile: bool):
         self.cell = cell
@@ -130,16 +139,13 @@ class Jobs:
         self.profile = profile
         self.mode = cell["cell"]["mode"]
 
-    def argv(self, d: Path, r1: Path, r2: Path) -> list:
-        return [a.format(r1=r1, r2=r2, dir=d) for a in self.cell["config"]["argv"]]
-
     def run(self, tag: str) -> dict:
         d = self.work / tag
         d.mkdir(parents=True)
-        r1, r2 = d / "r1.fq.gz", d / "r2.fq.gz"
-        os.link(self.inputs[0], r1)
-        os.link(self.inputs[1], r2)
-        argv = self.argv(d, r1, r2)
+        links = [d / p.name for p in self.inputs]
+        for src, dst in zip(self.inputs, links):
+            os.link(src, dst)
+        argv = job_argv(self.cell["config"], d, links)
         if self.mode == "inprocess":
             rec = self._inprocess(argv)
         else:
@@ -186,9 +192,11 @@ def cpu_seconds() -> float:
     return me.ru_utime + me.ru_stime + kids.ru_utime + kids.ru_stime
 
 
-def output_bytes(d: Path) -> int:
+def output_bytes(d: Path, inputs) -> int:
+    """Bytes of the files in a job's directory but its input links."""
+    skip = {p.name for p in inputs}
     return sum(p.stat().st_size for p in d.iterdir()
-               if p.is_file() and p.name not in ("r1.fq.gz", "r2.fq.gz"))
+               if p.is_file() and p.name not in skip)
 
 
 # ----------------------------------------------------------------------
@@ -261,12 +269,6 @@ def add_stages(total: dict, snap: dict) -> None:
         total[k] = total.get(k, 0.0) + float(v["seconds"])
 
 
-def overlap_scans(config: dict) -> int:
-    """Overlap scans a pair takes on the main path: one, and one more on the
-    merged reads with ``-m``."""
-    return 2 if config["reference_params"]["merge"] else 1
-
-
 def overlap_bytes(pairs: int, read_len: int, scans: int) -> int:
     """The least bytes the scan moves (``ops/overlap.py::analyze``'s
     contract): both reads' uint8 [B, L] planes and int32 lengths read once;
@@ -278,9 +280,10 @@ def overlap_bytes(pairs: int, read_len: int, scans: int) -> int:
 # ----------------------------------------------------------------------
 
 def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
-             device: str = "cuda:0", job_pairs=None) -> dict:
+             device: str = "cuda:0", job_size=None) -> dict:
     """One run of a cell: set-up, warm job, window, check.  Returns the
-    result object; ``job_pairs`` shrinks the jobs (tests)."""
+    result object; ``job_size`` (in the generator's ``UNIT``) shrinks the
+    jobs (tests)."""
     import numpy as np
     import torch
 
@@ -293,15 +296,18 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
                                         for m in cell["end_to_end"]))
     job = cell["cell"]
     config = cell["config"]
-    n_pairs = job_pairs or job["job_pairs"]
     gen, law = traffic_of(job)
+    size = job_size or job[f"job_{gen.UNIT}"]
+    ref = reference_of(config)
+    # overlap scans a unit of the job takes, as the reference counts them
+    scans = ref.overlap_scans(config) if hasattr(ref, "overlap_scans") else 0
     work = work_dir(cell["name"])
     shutil.rmtree(work, ignore_errors=True)
     (work / "in").mkdir(parents=True)
     try:
-        inputs = (work / "in" / "r1.fq.gz", work / "in" / "r2.fq.gz")
+        inputs = [work / "in" / name for name in gen.INPUTS]
         t_in = time.perf_counter()
-        pairs, written = gen.make_and_write(law, n_pairs, seed, *map(str, inputs))
+        records, written = gen.make_and_write(law, size, seed, *map(str, inputs))
         jobs = Jobs(cell, work, inputs, device, profile)
         # a whole job, so that the window's first job finds the process (or
         # the disk's caches, for a job in a process of its own) as the others do
@@ -309,7 +315,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
         warm = jobs.run("warm")
         if warm["rc"] != 0:
             raise BenchError(f"the warm job exited {warm['rc']}")
-        written += output_bytes(warm["dir"])
+        written += output_bytes(warm["dir"], inputs)
         shutil.rmtree(warm["dir"])
 
         from fqtool_tpu_torch.host import tracing
@@ -348,7 +354,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
                 raise BenchError("loaded in a job's process: " + ", ".join(leaked))
         failed = sum(1 for r in done if r["rc"] != 0)
         for r in done:
-            written += output_bytes(r["dir"])
+            written += output_bytes(r["dir"], inputs)
         if jobs.mode == "inprocess":
             peak = torch.cuda.max_memory_allocated(0) if on_card else 0
         else:
@@ -364,16 +370,15 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
             for r in done:
                 add_stages(stages, r.get("child", {}).get("stages", {}))
             dev = merge_child_traces([r.get("child", {}) for r in done])
-        pairs_done = n_pairs * len(done)
-        bases = pairs_done * 2 * law.read_len
+        units_done = size * len(done)
+        bases = records.bases * len(done)
         record = {
             "mode": jobs.mode, "trace": trace, "jobs": len(done),
-            "pairs": pairs_done, "bases": bases, "gbp": bases / 1e9,
+            gen.UNIT: units_done, "bases": bases, "gbp": bases / 1e9,
             "window_s": window_s, "setup_s": setup_s, "stages": stages,
             "startup_s": [r["startup_s"] for r in done if "startup_s" in r],
             "device": dev,
-            "overlap_bytes": overlap_bytes(pairs_done, law.read_len,
-                                           overlap_scans(config)),
+            "overlap_bytes": overlap_bytes(units_done, law.read_len, scans),
             "peak_hbm_bytes_per_s": PEAK_HBM_BYTES_PER_S,
         }
         metrics = {}
@@ -394,10 +399,10 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
         jobs_differ = sum(1 for s in sigs if s != sigs[pick])
         checks = {"jobs_differ": jobs_differ}
         if sigs[pick] is None:
-            checks.update(records_differ=pairs.count, counters_differ=1)
+            checks.update(records_differ=records.count, counters_differ=1)
         else:
-            ref = reference_of(config).expected(pairs, config, device)
-            checks.update(check.against_reference(done[pick]["dir"], streams, ref))
+            want = ref.expected(records, config, device)
+            checks.update(check.against_reference(done[pick]["dir"], streams, want))
         correct = failed == 0 and all(checks[k] <= check.LIMITS[k]
                                       for k in check.LIMITS)
 
@@ -416,7 +421,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
             result["breakdown"] = {
                 "device_ops": [[n, s] for n, s in dev["device_ops"]],
                 "idle_gaps": [[n, s] for n, s in dev["idle_gaps"]]}
-        result["run"] = {"jobs": len(done), "pairs": pairs_done,
+        result["run"] = {"jobs": len(done), gen.UNIT: units_done,
                          "bytes_written": written, "window_s": window_s,
                          "overshoot_s": window_s - seconds,
                          "checked_job": pick,

@@ -71,7 +71,7 @@ def test_a_cell_runs_with_jax_refused(cell, tmp_path):
         import run
         run.set_environment(False, "cpu")
         res = run.run_cell(run.load_cell("{cell}", pathlib.Path("{spec}")), 11,
-                           0.0, False, device="cpu", job_pairs=2000)
+                           0.0, False, device="cpu", job_size=2000)
         assert res["checks"]["records_differ"]["value"] == 0, res
         import child, check, readers
         for m in ("throughput", "dispatch_s", "device_idle"):
@@ -113,4 +113,4 @@ def test_a_job_process_holding_jax_is_refused(name, tmp_path, monkeypatch):
     with pytest.raises(run.BenchError, match=f"job's process: {name}"):
         cell = "pe_readme.small_sample"
         run.run_cell(run.load_cell(cell, bench_json_with(cell, tmp_path)), 11,
-                     0.0, False, device="cpu", job_pairs=2000)
+                     0.0, False, device="cpu", job_size=2000)

@@ -1,6 +1,7 @@
 """The plain reference against the program's CPU run, record for record and
 counter for counter, and the control (the reference with one of the
-configuration's guarantees broken) against the reference."""
+configuration's guarantees broken) against the reference: for each cell, its
+own generator and reference, as ``run.py`` finds them."""
 
 from __future__ import annotations
 
@@ -12,34 +13,36 @@ import sys
 import pytest
 
 import check
+import run
 from conftest import BENCH, ROOT
-from reference.pe import expected
-from traffic.pairs import PairLaw, make_and_write
 
 CELLS = sorted(p.stem for p in (BENCH / "workloads").glob("*.json"))
-PAIRS = 20_000  # enough reads for the pre-pass to detect both adapters
+# a job's size in the generator's unit: enough reads for the pre-pass to
+# detect both adapters
+PAIRS = 20_000
 SEED = 2**33 + 5
 
 
 def cell_files(cell):
+    """The cell file, its configuration, its generator and law, and the
+    configuration's reference module."""
     w = json.loads((BENCH / "workloads" / f"{cell}.json").read_text())
     cfg = json.loads((BENCH / "configs" / f"{w['config']}.json").read_text())
-    law = PairLaw.from_dict({k: v for k, v in w["traffic"].items()
-                             if k != "generator"})
-    return w, cfg, law
+    gen, law = run.traffic_of(w)
+    return w, cfg, gen, law, run.reference_of(cfg)
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_reference_equals_the_program_on_the_cpu(cell, tmp_path):
-    _, cfg, law = cell_files(cell)
-    r1, r2 = tmp_path / "r1.fq.gz", tmp_path / "r2.fq.gz"
-    pairs, _ = make_and_write(law, PAIRS, SEED, str(r1), str(r2))
-    argv = [a.format(r1=r1, r2=r2, dir=tmp_path) for a in cfg["argv"]]
+    _, cfg, gen, law, reference = cell_files(cell)
+    inputs = [tmp_path / name for name in gen.INPUTS]
+    pairs, _ = gen.make_and_write(law, PAIRS, SEED, *map(str, inputs))
+    argv = run.job_argv(cfg, tmp_path, inputs)
     env = dict(os.environ, FQTOOL_TPU_TORCH_DEVICE="cpu", PYTHONPATH=str(ROOT))
     env.pop("FQTOOL_TPU_TRACE", None)
     subprocess.run([sys.executable, "-m", "fqtool_tpu_torch.main", *argv],
                    env=env, check=True, capture_output=True, timeout=600)
-    ref = expected(pairs, cfg, "cpu")
+    ref = reference.expected(pairs, cfg, "cpu")
     assert check.against_reference(tmp_path, cfg["streams"], ref) == \
         {"records_differ": 0, "counters_differ": 0}
     # the traffic reaches the layers the cell is about
@@ -59,11 +62,10 @@ def test_control_fails(cell):
     """The control breaks a guarantee of the configuration that the cell's
     traffic exercises (the cell file's ``control``); the comparison must see
     it in the records and in the report."""
-    w, cfg, law = cell_files(cell)
-    from traffic.pairs import make
-    pairs = make(law, PAIRS, SEED)
-    ref = expected(pairs, cfg, "cpu")
-    ctl = expected(pairs, cfg, "cpu", broken=w["control"])
+    w, cfg, gen, law, reference = cell_files(cell)
+    pairs = gen.make(law, PAIRS, SEED)
+    ref = reference.expected(pairs, cfg, "cpu")
+    ctl = reference.expected(pairs, cfg, "cpu", broken=w["control"])
     from reference.records import records_differ
     recs = sum(records_differ(ctl.stream_bytes(s), ref.stream_bytes(s))
                for s in cfg["streams"])

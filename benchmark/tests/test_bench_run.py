@@ -27,7 +27,7 @@ def run_small(cell, monkeypatch, trace=False):
     run.set_environment(trace, "cpu")
     spec = bench_json_with(cell, Path(os.environ["TMPDIR"]))
     return run.run_cell(run.load_cell(cell, spec), SEED, 0.0, trace,
-                        device="cpu", job_pairs=PAIRS)
+                        device="cpu", job_size=PAIRS)
 
 
 @pytest.mark.parametrize("cell", ["pe_readme.lane", "pe_merge_corr.cfdna",

@@ -122,7 +122,7 @@ def test_traced_cpu_run_feeds_the_new_readers(tmp_env, monkeypatch):
     spec = bench_json_with(cell, Path(os.environ["TMPDIR"]))
     try:
         res = run.run_cell(run.load_cell(cell, spec), 2**32 + 5, 0.0, True,
-                           device="cpu", job_pairs=20_000)
+                           device="cpu", job_size=20_000)
     finally:
         tracing.reset()
     assert res["correct"], res["checks"]
@@ -183,10 +183,9 @@ def clock_check(pairs: int, seed: int, work: Path) -> dict:
     (work / "in").mkdir(parents=True)
     r1, r2 = work / "in" / "r1.fq.gz", work / "in" / "r2.fq.gz"
     gen.make_and_write(law, pairs, seed, str(r1), str(r2))
-    jobs = run.Jobs(cell, work, (r1, r2), "cuda:0", False)
     out = work / "out"
     out.mkdir()
-    argv = jobs.argv(out, r1, r2)
+    argv = run.job_argv(cell["config"], out, (r1, r2))
     assert port_main(argv) == 0  # warm: the kernel's build, the caches
     dev = torch.device("cuda", 0)
     host = torch.ones(1 << 20, dtype=torch.uint8)

@@ -10,9 +10,11 @@ levels an instrument reports.  The law of the data is that of
 Read names follow the layout that Illumina's bcl2fastq writes (CASAVA 1.8),
 with the instrument, run, flowcell, lane and index as parameters.
 
-A generator module gives ``law(params)``, ``make(law, n, seed)`` and
-``make_and_write(law, n, seed, path1, path2)``; ``run.py`` finds it by the
-cell's ``traffic.generator``.
+A generator module gives ``UNIT`` (what a job counts: the cell file's
+``job_<UNIT>`` key), ``INPUTS`` (the file names a job reads), ``law(params)``,
+``make(law, n, seed)`` and ``make_and_write(law, n, seed, *paths)``, one path
+per entry of ``INPUTS``; its records give ``count`` and ``bases``.  ``run.py``
+finds it by the cell's ``traffic.generator``.
 
 The stream is made in blocks of ``BLOCK`` pairs, block k from the seed
 sequence ``(seed, k)``, so a job's pairs do not depend on how many threads
@@ -28,6 +30,8 @@ from typing import List, Tuple
 
 import numpy as np
 
+UNIT = "pairs"
+INPUTS = ("r1.fq.gz", "r2.fq.gz")
 BLOCK = 131_072
 TILE_PAIRS = 20_000   # pairs a tile holds before the name's tile steps
 TILES = 12
@@ -205,6 +209,11 @@ class Pairs:
     def count(self) -> int:
         return len(self.isize)
 
+    @property
+    def bases(self) -> int:
+        """The input bases the program reads: both mates of every pair."""
+        return self.count * 2 * self.law.read_len
+
 
 def _blocks(law: PairLaw, n: int, seed: int, ex: ThreadPoolExecutor):
     spans = [(lo, min(BLOCK, n - lo)) for lo in range(0, n, BLOCK)]
@@ -225,11 +234,12 @@ def make(law: PairLaw, n: int, seed: int, threads: int = 6) -> Pairs:
         return _join(law, list(_blocks(law, n, seed, ex)))
 
 
-def make_and_write(law: PairLaw, n: int, seed: int, path1: str, path2: str,
+def make_and_write(law: PairLaw, n: int, seed: int, *paths: str,
                    level: int = 1, threads: int = 6) -> Tuple[Pairs, int]:
     """``make`` while each mate's blocks are deflated, in order, into
-    one gzip stream per file on a thread of its own; returns the pairs and
-    the bytes written."""
+    one gzip stream per file of ``paths`` (read1's, read2's: ``INPUTS``) on a
+    thread of its own; returns the pairs and the bytes written."""
+    path1, path2 = paths
     comps = [zlib.compressobj(level, zlib.DEFLATED, 31) for _ in range(2)]
     blocks = []
     written = 0
