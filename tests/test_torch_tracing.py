@@ -4,7 +4,8 @@ Spans nest and keep self and CPU time; the root span ``job`` closes the
 books of its thread (``main_other``); every registry entry keeps the shape
 the benchmark reads; tracing off costs one shared null context; the card's
 unfed time is put down to the spans open during it; and a traced paired-end
-CLI run records every stage and writes the same bytes as an untraced one.
+or single-end CLI run records every stage, nests its fold's sub-stages and
+writes the same bytes as an untraced one.
 """
 
 from __future__ import annotations
@@ -18,11 +19,12 @@ import torch
 from fqtool_tpu_torch.host import tracing
 from fqtool_tpu_torch.main import main as torch_main
 from fqtool_tpu_torch.pipeline import device as device_mod
-from fqtool_tpu_torch.pipeline import pe_runner
+from fqtool_tpu_torch.pipeline import pe_runner, runner
 
 from .test_torch_cli import _run
 from .torch_multihost import assert_same_bytes
 from .torch_pairs import write_pairs
+from .torch_reads import ADAPTER, write_reads
 
 S = 10**9  # ns in a second
 
@@ -372,3 +374,41 @@ def test_profile_dir_traces_the_paired_end_stages(tmp_path, monkeypatch):
     names = {e.get("name") for e in json.loads(traces[0].read_text())["traceEvents"]}
     assert {"pe_dispatch", "dispatch_h2d", "dispatch_launch", "pe_fold",
             "pe_fold_route", "input_wait"} <= names
+
+
+SE_ARGV = ["-q", "-Q", "15", "-U", "0.4", "-N", "5", "-l", "--min_length", "15",
+           "-a", "--adapter_of_read1", ADAPTER.decode(), "-g", "-d"]
+SE_STAGES = {"se_prep", "se_dispatch", "se_device_wait", "se_fold",
+             "se_fold_stats", "se_fold_dup", "se_fold_count", "se_fold_route",
+             "se_emit"}
+
+
+def test_traced_single_end_run_nests_its_fold(tmp_path, monkeypatch):
+    write_reads(tmp_path / "r.fq", 1200, seed=47, read_len=75)
+    monkeypatch.setenv("FQTOOL_TPU_TORCH_DEVICE", "cpu")
+    # several chunks a pack, so that the fetch thread runs
+    monkeypatch.setattr(runner, "SE_CHUNK", 256)
+    argv = ["-i", str(tmp_path / "r.fq"), "-o", "o.fq.gz", *SE_ARGV,
+            "-J", "report.json", "-H", "report.html"]
+    assert _run(torch_main, argv, tmp_path / "plain") == 0
+    monkeypatch.setattr(tracing, "_ENABLED", True)
+    tracing.reset()
+    try:
+        assert _run(torch_main, argv, tmp_path / "traced") == 0
+        snap = tracing.snapshot()
+        spans = tracing.spans()
+    finally:
+        tracing.reset()
+    assert SE_STAGES <= set(snap), SE_STAGES - set(snap)
+    assert assert_same_bytes(tmp_path / "plain", tmp_path / "traced") == ["o.fq.gz"]
+    parent = {}
+    for name, _, _, p, _ in spans:
+        parent.setdefault(name, set()).add(p)
+    for sub in ("se_fold_stats", "se_fold_dup", "se_fold_count", "se_fold_route"):
+        assert parent[sub] == {"se_fold"}, (sub, parent[sub])
+    subs = sum(snap[n]["seconds"] for n in SE_STAGES if n.startswith("se_fold_"))
+    assert subs <= snap["se_fold"]["seconds"]
+    # the wait on the card holds no fold work: at most the copies back
+    assert {n for n, ps in parent.items() if "se_device_wait" in ps} <= {"d2h"}
+    assert {"se_prep", "se_dispatch", "se_device_wait", "se_fold",
+            "se_emit"} <= {n for n, ps in parent.items() if ps == {"job"}}

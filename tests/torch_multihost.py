@@ -135,7 +135,7 @@ def assert_ok(results) -> None:
 # a row of the stage tree that FQTOOL_TPU_TRACE=1 prints at exit
 # (host/tracing.py::dump): name, total, self and CPU seconds, calls
 _DISPATCH = re.compile(
-    r"^\s*(?:pe_)?dispatch\s+[\d.]+\s+[\d.]+\s+[\d.]+\s+(\d+)\s*$", re.M)
+    r"^\s*(?:pe_|se_)dispatch\s+[\d.]+\s+[\d.]+\s+[\d.]+\s+(\d+)\s*$", re.M)
 
 
 def dispatches(results) -> list:
