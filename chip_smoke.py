@@ -17,7 +17,10 @@ Phases, each of which stops the run with a nonzero exit on failure:
    at four per 32-bit op;
 4. the paired-end main path pe_qualtrim: 1,000,000 synthetic 2x151 bp
    pairs through ``fqtool_tpu_torch.main`` on cuda with ``-q -f 3 -t 2`` and
-   every output stream; the kernel's launch counter must cover every chunk.
+   every output stream; the kernel's launch counter must cover every chunk,
+   and every chunk must cross in one copy of a page-locked arena
+   (``pipeline/device.py::staged``: page-locked uploads = uploads = chunks,
+   checked in every main-path run of the later phases too).
    The run is traced with torch.profiler (device activity only), which
    gives the card's busy time against the run's wall and the kernels that
    fill it, beside the host stage split;
@@ -68,14 +71,16 @@ Phases, each of which stops the run with a nonzero exit on failure:
    pairs/s beside phase 7's; se_all on phase 11's reads against a one-device
    run; ``entry("cuda")`` against ``entry("cpu")``; ``dryrun(2)`` over
    cuda:0 twice;
-14. the transports: the link probe's MB/s to the card and its decision;
+14. the transports: the link probe's MB/s to the card and its decision,
+   beside a 16 MiB upload's MB/s from pageable and from page-locked memory;
    ``decode_device``/``decode5_device`` on the card against the CPU and the
    original planes (65,536 binned reads); pe_full on phase 8's pairs and
    se_all with ``--ora`` on 150,000 of phase 10's reads (two packs), both
    with binned qualities (six values, so the 5-bit dictionary holds every
    pack), under ``FQTOOL_TPU_PACKED=1`` with ``FQTOOL_TPU_PACKED5`` 1 and 0,
    ``FQTOOL_TPU_INBLOB=1``, ``FQTOOL_TPU_PACK_OVERLAP=1`` and
-   ``FQTOOL_TPU_HEADCACHE=0``: each byte-identical to the default run, with
+   ``FQTOOL_TPU_HEADCACHE=0``: each byte-identical to the default run (the
+   one-blob run uploads nothing through the arena), with
    the transport each chunk took counted (``pipeline/runner.py::
    transport_chunks``); then a ``FQTOOL_TPU_PROFILE_DIR`` run that must leave
    its trace.
@@ -99,6 +104,7 @@ import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 os.environ.setdefault("FQTOOL_TPU_TRACE", "1")  # host stage split, phase 4
@@ -128,7 +134,7 @@ from fqtool_tpu_torch.ops import stats_cuda  # noqa: E402
 from fqtool_tpu_torch.pipeline import pe as pe_pipe  # noqa: E402
 from fqtool_tpu_torch.pipeline import runner  # noqa: E402
 from fqtool_tpu_torch.pipeline import se as se_pipe  # noqa: E402
-from fqtool_tpu_torch.pipeline.device import outputs_to_numpy  # noqa: E402
+from fqtool_tpu_torch.pipeline.device import outputs_to_numpy, staged  # noqa: E402
 from fqtool_tpu_torch.pipeline.pe_runner import pipeline_args  # noqa: E402
 from tests.oracle import compare_json, diff_fastq, read_fastq  # noqa: E402
 from tests.torch_pairs import (ADAPTER_R1, ADAPTER_R2,  # noqa: E402
@@ -383,11 +389,13 @@ def phase_stats_kernel() -> dict:
 
 
 def _reset_launches() -> None:
-    """Zero both kernels' launch counters and the chunk count of
-    ``runner.transport_chunks`` before a main-path run."""
+    """Zero both kernels' launch counters, the chunk count of
+    ``runner.transport_chunks`` and the arena's ``device.staged`` before a
+    main-path run."""
     overlap_cuda.launches = 0
     stats_cuda.launches = 0
     runner.transport_chunks.clear()
+    staged.clear()
 
 
 STATS_LAUNCHES = []  # the stats kernel's launches of each checked run
@@ -407,6 +415,24 @@ def _check_stats_launches(tag: str, per_chunk: int, launches=None, chunks=None,
         raise SystemExit(f"{tag}: {launches} stats kernel launches for {chunks} "
                          f"chunks, {per_chunk * parts} a chunk expected")
     STATS_LAUNCHES.append(launches)
+
+
+def _check_staged(tag: str, parts: int = 1, counts=None, chunks=None,
+                  arena: bool = True) -> None:
+    """Every upload of the chunks dispatched since ``_reset_launches`` (or
+    the given ``counts`` and chunks of ranks) through a page-locked arena:
+    ``pinned`` = ``chunks`` = ``parts`` a chunk of ``runner.
+    transport_chunks``; none where the chunks crossed as one blob
+    (``arena`` false)."""
+    if counts is None:
+        counts = staged
+        chunks = sum(runner.transport_chunks.values())
+    want = parts * chunks if arena else 0
+    log(f"{tag}: arena uploads {counts.get('chunks', 0)}, page-locked "
+        f"{counts.get('pinned', 0)}, {counts.get('bytes', 0)} bytes for {chunks} chunks")
+    if not chunks or counts.get("chunks", 0) != want or counts.get("pinned", 0) != want:
+        raise SystemExit(f"{tag}: arena counts {dict(counts)} for {chunks} chunks, "
+                         f"{want} page-locked uploads expected")
 
 
 def _run_cli(work: Path, r1: Path, r2: Path, device: str, tag: str) -> dict:
@@ -478,6 +504,7 @@ def phase_main(work: Path, pairs: int) -> tuple:
                         lambda: _run_cli(work, r1, r2, "cuda", "cuda_full"))
     launches = overlap_cuda.launches
     _check_stats_launches("pe_qualtrim", 4)
+    _check_staged("pe_qualtrim")
     chunks = -(-pairs // PE_CHUNK)
     rep = json.loads(out["json"].read_text())
     ins = rep["InsertSize"]
@@ -689,6 +716,7 @@ def phase_pe_main(work: Path, pairs: int) -> tuple:
         wall, d = _traced(tag, lambda: _run_pe_cli(work, tag, (r1, r2), flags, "cuda"))
         launches = overlap_cuda.launches
         _check_stats_launches(tag, stat_calls)
+        _check_staged(tag)
         total += launches
         rates[tag] = pairs / wall
         rep = json.loads((d / "report.json").read_text())
@@ -937,6 +965,7 @@ def phase_se_main(work: Path, reads: int) -> Path:
         _reset_launches()
         wall, d = _traced(tag, lambda: _run_se_cli(work, src, flags, "cuda", tag))
         _check_stats_launches(tag, 2)
+        _check_staged(tag)
         rep = json.loads((d / "report.json").read_text())
         log(f"{tag} main path: {n} reads in {wall:.3f} s = {n / wall:.1f} reads/s "
             f"({' '.join(flags)})")
@@ -1011,7 +1040,8 @@ def rank_main(argv) -> int:
     print(json.dumps({"launches": overlap_cuda.launches,
                       "stats_launches": stats_cuda.launches,
                       "chunks": sum(runner.transport_chunks.values()),
-                      "busy_ms": busy_ms, "stages": tracing.snapshot()}), flush=True)
+                      "staged": dict(staged), "busy_ms": busy_ms,
+                      "stages": tracing.snapshot()}), flush=True)
     return rc
 
 
@@ -1146,6 +1176,9 @@ def phase_multihost(work: Path, a1: Path, a2: Path, pairs: int, fq: Path, reads:
             _check_stats_launches(f"{tag} as {nprocs} ranks", stat_calls,
                                   sum(r["stats_launches"] for r in ranks),
                                   sum(r["chunks"] for r in ranks))
+            _check_staged(f"{tag} as {nprocs} ranks",
+                          counts=sum((Counter(r["staged"]) for r in ranks), Counter()),
+                          chunks=sum(r["chunks"] for r in ranks))
         total += launches
     return total
 
@@ -1169,6 +1202,7 @@ def phase_devices(work: Path, a1: Path, a2: Path, pairs: int,
     launches = overlap_cuda.launches
     if dev == "cuda":
         _check_stats_launches(tag, 5, parts=2)
+        _check_staged(tag, parts=2)
     names = _same_outputs(tag, work / "pe_merge_corr", d)
     log(f"{tag} over {two}: {pairs} pairs in {wall:.3f} s = "
         f"{pairs / wall:.1f} pairs/s (phase 7 on one device, same call: "
@@ -1184,6 +1218,7 @@ def phase_devices(work: Path, a1: Path, a2: Path, pairs: int,
     d2 = _run_se_cli(work, sub, SE_ALL_FAILED, two, "dev_se_all_x2")
     if dev == "cuda":
         _check_stats_launches("se_all_x2", 2, parts=2)
+        _check_staged("se_all_x2", parts=2)
     names = _same_outputs("se_all_x2", d1, d2)
     log(f"se_all over {two} on phase 11's reads: {len(names)} output files "
         "byte-identical to the one-device run, reports equal")
@@ -1219,6 +1254,23 @@ def _with_env(env: dict, fn):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def upload_mbps(dev, pinned: bool, nbytes: int = 16 << 20, rounds: int = 5) -> float:
+    """MB/s (MiB a second, as the link probe counts) of one ``nbytes``
+    upload to ``dev`` from pageable or page-locked host memory: the fastest
+    of ``rounds`` copies, each ending in a synchronize of the card."""
+    host = torch.ones(nbytes, dtype=torch.uint8, pin_memory=pinned)
+    on_dev = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    on_dev.copy_(host)  # warm the path (context, staging buffers, mappings)
+    torch.cuda.synchronize(dev)
+    best = float("inf")
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        on_dev.copy_(host, non_blocking=pinned)
+        torch.cuda.synchronize(dev)
+        best = min(best, time.perf_counter() - t0)
+    return (nbytes / (1 << 20)) / best
 
 
 def _phase_decode(dev: str) -> None:
@@ -1257,9 +1309,14 @@ def phase_transports(work: Path, fq: Path, subset: int, se_reads: int,
     os.environ.pop("FQTOOL_TPU_PACKED", None)
     linkprobe._cached = None
     mbps = linkprobe._probe_mbps(dev)
+    rates = "not measured (no card)"
+    if torch.device(dev).type == "cuda":
+        rates = (f"pageable {upload_mbps(dev, False):.1f} MB/s, page-locked "
+                 f"{upload_mbps(dev, True):.1f} MB/s")
     log(f"link probe: {mbps:.1f} MB/s upload to {dev} (4 MiB pageable, fastest of "
-        f"{linkprobe._PROBE_ROUNDS}); threshold {linkprobe.PACKED_THRESHOLD_MBPS} "
-        f"MB/s; use_packed() = {linkprobe.use_packed(dev)}")
+        f"{linkprobe._PROBE_ROUNDS}); 16 MiB upload, fastest of 5: {rates}; threshold "
+        f"{linkprobe.PACKED_THRESHOLD_MBPS} MB/s; use_packed() = "
+        f"{linkprobe.use_packed(dev)}")
     _phase_decode(dev)
     b1 = bin_qualities(work / "as1.fq", work / "bs1.fq")  # phase 8's pairs
     b2 = bin_qualities(work / "as2.fq", work / "bs2.fq")
@@ -1282,6 +1339,7 @@ def phase_transports(work: Path, fq: Path, subset: int, se_reads: int,
             launches = overlap_cuda.launches
             if dev == "cuda":
                 _check_stats_launches(f"{tag} {name}", stat_calls)
+                _check_staged(f"{tag} {name}", arena=name != "inblob")
             took = dict(runner.transport_chunks)
             total += launches
             if name == "default":

@@ -1,5 +1,6 @@
 """Host <-> device transport shared by the single-end and paired-end
-pipelines: upload of a chunk's numpy planes, dispatch of a pipeline body on
+pipelines: upload of a chunk's numpy planes (packed into one byte arena,
+page-locked for a card, and copied once), dispatch of a pipeline body on
 one device, the handle over a dispatched chunk, and the conversion of its
 output dict back to numpy (the JAX pipelines' host contract)."""
 
@@ -7,7 +8,8 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Dict, Sequence
+from collections import Counter
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -16,28 +18,75 @@ from ..host import tracing
 from ..host.tracing import stage
 
 
+ALIGN = 256  # bytes; every plane of an arena starts at a multiple of it
+
+# every upload through an arena: "chunks" the uploads, "pinned" those whose
+# arena was page-locked, "bytes" the arena bytes copied
+staged: Counter = Counter()
+
+_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.bool_): torch.bool,
+                 np.dtype(np.int32): torch.int32}
+
+
+def _plane_dtype(a: np.ndarray) -> np.dtype:
+    """uint8 and bool planes keep their dtype; integer vectors become int32."""
+    return a.dtype if a.dtype in (np.uint8, np.bool_) else np.dtype(np.int32)
+
+
 def host_planes(arrays: Sequence[np.ndarray]) -> list:
     """Numpy planes of a ReadPack slice as the device takes them: uint8 and
     bool planes keep their dtype, integer vectors become int32.  Slices may be
     read-only views, so each is copied into a contiguous array first."""
-    out = []
+    return [np.ascontiguousarray(a, dtype=_plane_dtype(np.asarray(a)))
+            for a in arrays]
+
+
+def arena_layout(arrays: Sequence[np.ndarray]) -> Tuple[list, int]:
+    """Where :func:`pack` puts each array in one byte arena: a list of
+    (offset, bytes, dtype, shape), each offset a multiple of ``ALIGN`` and
+    each dtype :func:`host_planes`' dtype, and the bytes in use (the end of
+    the last array)."""
+    slots, end = [], 0
     for a in arrays:
-        a = np.ascontiguousarray(a)
-        if a.dtype not in (np.uint8, np.bool_):
-            a = a.astype(np.int32)
-        out.append(a)
-    return out
+        dtype = _plane_dtype(a)
+        off = -(-end // ALIGN) * ALIGN
+        end = off + a.size * dtype.itemsize
+        slots.append((off, end - off, dtype, a.shape))
+    return slots, end
 
 
-def upload(planes: Sequence[np.ndarray], device) -> tuple:
-    """Enqueue the copy of each of :func:`host_planes`' arrays to ``device``."""
-    return tuple(torch.as_tensor(a).to(device, non_blocking=True) for a in planes)
+def pack(arrays: Sequence[np.ndarray], device) -> Tuple[torch.Tensor, list]:
+    """Write ``arrays`` into one host byte arena at :func:`arena_layout`'s
+    offsets, integer vectors cast to int32 on the way; returns the arena and
+    the layout.  For a card the arena is page-locked, from PyTorch's caching
+    host allocator, which hands a block out again only once the copies
+    recorded on it have completed; elsewhere it is plain host memory."""
+    arrays = [np.asarray(a) for a in arrays]
+    slots, nbytes = arena_layout(arrays)
+    arena = torch.empty(nbytes, dtype=torch.uint8,
+                        pin_memory=torch.device(device).type == "cuda")
+    host = arena.numpy()
+    for a, (off, n, dtype, shape) in zip(arrays, slots):
+        np.copyto(host[off:off + n].view(dtype).reshape(shape), a, casting="unsafe")
+    return arena, slots
+
+
+def upload(arena: torch.Tensor, slots: list, device) -> tuple:
+    """Enqueue the one copy of a :func:`pack` arena to ``device`` (none on
+    the CPU, where the arena is the device's memory) and return each array
+    as a typed view of the copy.  Counted in ``staged``."""
+    buf = arena.to(device, non_blocking=True)
+    staged["chunks"] += 1
+    staged["pinned"] += int(arena.is_pinned())
+    staged["bytes"] += arena.numel()
+    return tuple(buf.narrow(0, off, n).view(_TORCH_DTYPES[dtype]).view(shape)
+                 for off, n, dtype, shape in slots)
 
 
 def to_device(arrays: Sequence[np.ndarray], device) -> tuple:
-    """Numpy planes of a ReadPack slice -> tensors on ``device``
-    (:func:`host_planes`, then :func:`upload`)."""
-    return upload(host_planes(arrays), device)
+    """Numpy planes of a ReadPack slice -> tensors on ``device`` with
+    :func:`host_planes`' dtypes (:func:`pack`, then :func:`upload`)."""
+    return upload(*pack(arrays, device), device)
 
 
 def on_device(device: torch.device):
@@ -55,8 +104,9 @@ def dispatch(body, arrays: Sequence[np.ndarray], device, aux: Sequence = (),
     arrays (which keep their own shape), run ``body(*planes, *aux, **kw)`` on
     ``device`` and return the handle over its output.  With
     ``FQTOOL_TPU_INBLOB=1`` the chunk crosses as one int32 blob each way
-    (pipeline/blob.py); by default each plane and each output tensor is
-    copied on its own.  Traced: the stages ``dispatch_h2d`` (the uploads)
+    (pipeline/blob.py); by default the planes and ``aux`` cross in one copy
+    of a :func:`pack` arena and each output tensor is copied back on its
+    own.  Traced: the stages ``dispatch_h2d`` (the packing and the upload)
     and ``dispatch_launch`` (the body's launches), and on a card the chunk's
     interval on the card's timeline (host/tracing.py)."""
     device = torch.device(device)
@@ -65,10 +115,10 @@ def dispatch(body, arrays: Sequence[np.ndarray], device, aux: Sequence = (),
             from .blob import dispatch_blob
             return dispatch_blob(body, arrays, aux, device, **kw)
         with stage("dispatch_h2d"):
-            host = host_planes(tuple(arrays) + tuple(aux))
-            # the chunk's start on the card, just before its first upload
+            arena, slots = pack(tuple(arrays) + tuple(aux), device)
+            # the chunk's start on the card, just before its upload
             begun = tracing.card_begin(device)
-            planes = upload(host, device)
+            planes = upload(arena, slots, device)
         with stage("dispatch_launch"):
             out = body(*planes, **kw)
         return PipelineResult(out, device, begun)
