@@ -19,8 +19,9 @@ Phases, each of which stops the run with a nonzero exit on failure:
    pairs through ``fqtool_tpu_torch.main`` on cuda with ``-q -f 3 -t 2`` and
    every output stream; the kernel's launch counter must cover every chunk,
    and every chunk must cross in one copy of a page-locked arena
-   (``pipeline/device.py::staged``: page-locked uploads = uploads = chunks,
-   checked in every main-path run of the later phases too).
+   (``pipeline/device.py::staged``: page-locked uploads = uploads = parts x
+   the chunks the runners dispatched, checked in every main-path run of the
+   later phases too).
    The run is traced with torch.profiler (device activity only), which
    gives the card's busy time against the run's wall and the kernels that
    fill it, beside the host stage split;
@@ -71,19 +72,12 @@ Phases, each of which stops the run with a nonzero exit on failure:
    pairs/s beside phase 7's; se_all on phase 11's reads against a one-device
    run; ``entry("cuda")`` against ``entry("cpu")``; ``dryrun(2)`` over
    cuda:0 twice;
-14. the transports: the link probe's MB/s to the card and its decision,
-   beside a 16 MiB upload's MB/s from pageable and from page-locked memory;
-   ``decode_device``/``decode5_device`` on the card against the CPU and the
-   original planes (65,536 binned reads); pe_full on phase 8's pairs and
-   se_all with ``--ora`` on 150,000 of phase 10's reads (two packs), both
-   with binned qualities (six values, so the 5-bit dictionary holds every
-   pack), under ``FQTOOL_TPU_PACKED=1`` with ``FQTOOL_TPU_PACKED5`` 1 and 0,
-   ``FQTOOL_TPU_INBLOB=1``, ``FQTOOL_TPU_PACK_OVERLAP=1`` and
-   ``FQTOOL_TPU_HEADCACHE=0``: each byte-identical to the default run (the
-   one-blob run uploads nothing through the arena), with
-   the transport each chunk took counted (``pipeline/runner.py::
-   transport_chunks``); then a ``FQTOOL_TPU_PROFILE_DIR`` run that must leave
-   its trace.
+14. the switches: a 16 MiB upload's MB/s from pageable and from
+   page-locked memory; pe_full on phase 8's pairs and se_all with ``--ora``
+   on 150,000 of phase 10's reads (two packs) under
+   ``FQTOOL_TPU_PACK_OVERLAP=1`` and ``FQTOOL_TPU_HEADCACHE=0``: each
+   byte-identical to the default run, every chunk through a page-locked
+   arena; then a ``FQTOOL_TPU_PROFILE_DIR`` run that must leave its trace.
 
 The second-to-last line is the kernel table as JSON (the overlap kernel's
 launches summed over the paired-end main paths, the paired-end ranks of
@@ -117,7 +111,7 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 
 from fqtool_tpu_torch import entry as port_entry  # noqa: E402
-from fqtool_tpu_torch.host import linkprobe, native, tracing  # noqa: E402
+from fqtool_tpu_torch.host import native, tracing  # noqa: E402
 from fqtool_tpu_torch.main import main as cli_main  # noqa: E402
 from fqtool_tpu_torch.ops import adapter as se_adapter  # noqa: E402
 from fqtool_tpu_torch.ops import common as se_common  # noqa: E402
@@ -126,13 +120,12 @@ from fqtool_tpu_torch.ops import dup as se_dup  # noqa: E402
 from fqtool_tpu_torch.ops import filters as se_filters  # noqa: E402
 from fqtool_tpu_torch.ops import merge as pe_merge  # noqa: E402
 from fqtool_tpu_torch.ops import overlap, overlap_cuda, overlap_select  # noqa: E402
-from fqtool_tpu_torch.ops import packed  # noqa: E402
 from fqtool_tpu_torch.ops import polyx as se_polyx  # noqa: E402
 from fqtool_tpu_torch.ops import qualcut as se_qualcut  # noqa: E402
 from fqtool_tpu_torch.ops import stats as se_stats  # noqa: E402
 from fqtool_tpu_torch.ops import stats_cuda  # noqa: E402
 from fqtool_tpu_torch.pipeline import pe as pe_pipe  # noqa: E402
-from fqtool_tpu_torch.pipeline import runner  # noqa: E402
+from fqtool_tpu_torch.pipeline import pe_runner, runner  # noqa: E402
 from fqtool_tpu_torch.pipeline import se as se_pipe  # noqa: E402
 from fqtool_tpu_torch.pipeline.device import outputs_to_numpy, staged  # noqa: E402
 from fqtool_tpu_torch.pipeline.pe_runner import pipeline_args  # noqa: E402
@@ -141,8 +134,7 @@ from tests.torch_pairs import (ADAPTER_R1, ADAPTER_R2,  # noqa: E402
                                OVERLAP_EDGE_CASES, _options, edge_pairs,
                                kernel_params_se, make_pairs, planted_pairs,
                                write_pairs)
-from tests.torch_reads import (ADAPTER, QUAL_BIN_TABLE,  # noqa: E402
-                               bin_qualities, make_reads, write_reads)
+from tests.torch_reads import ADAPTER, make_reads, write_reads  # noqa: E402
 
 PE_CHUNK = 16384
 FLAGS = ["-q", "-f", "3", "-t", "2"]
@@ -388,13 +380,29 @@ def phase_stats_kernel() -> dict:
             "library_ms": None, "merged_304": figures[304]}
 
 
+# chunks the runners hand to dispatch_on since the last _reset_launches
+DISPATCHED = Counter()
+
+
+def _counted(dispatch_on):
+    def counted(devices, body, arrays, **kw):
+        DISPATCHED["chunks"] += 1
+        return dispatch_on(devices, body, arrays, **kw)
+    return counted
+
+
+def _count_chunks() -> None:
+    """Count every chunk both runners dispatch in ``DISPATCHED``."""
+    runner.dispatch_on = _counted(runner.dispatch_on)
+    pe_runner.dispatch_on = _counted(pe_runner.dispatch_on)
+
+
 def _reset_launches() -> None:
-    """Zero both kernels' launch counters, the chunk count of
-    ``runner.transport_chunks`` and the arena's ``device.staged`` before a
-    main-path run."""
+    """Zero both kernels' launch counters, the count of dispatched chunks
+    and the arena's ``device.staged`` before a main-path run."""
     overlap_cuda.launches = 0
     stats_cuda.launches = 0
-    runner.transport_chunks.clear()
+    DISPATCHED.clear()
     staged.clear()
 
 
@@ -408,7 +416,7 @@ def _check_stats_launches(tag: str, per_chunk: int, launches=None, chunks=None,
     ``_reset_launches`` (or the given launches and chunks of ranks)."""
     if launches is None:
         launches = stats_cuda.launches
-        chunks = sum(runner.transport_chunks.values())
+        chunks = DISPATCHED["chunks"]
     log(f"{tag}: stats kernel launches {launches} for {chunks} chunks "
         f"({per_chunk} a chunk{f' on each of {parts} devices' if parts > 1 else ''})")
     if not chunks or launches != per_chunk * parts * chunks:
@@ -417,17 +425,14 @@ def _check_stats_launches(tag: str, per_chunk: int, launches=None, chunks=None,
     STATS_LAUNCHES.append(launches)
 
 
-def _check_staged(tag: str, parts: int = 1, counts=None, chunks=None,
-                  arena: bool = True) -> None:
+def _check_staged(tag: str, parts: int = 1, counts=None, chunks=None) -> None:
     """Every upload of the chunks dispatched since ``_reset_launches`` (or
     the given ``counts`` and chunks of ranks) through a page-locked arena:
-    ``pinned`` = ``chunks`` = ``parts`` a chunk of ``runner.
-    transport_chunks``; none where the chunks crossed as one blob
-    (``arena`` false)."""
+    ``pinned`` = ``chunks`` = ``parts`` a dispatched chunk."""
     if counts is None:
         counts = staged
-        chunks = sum(runner.transport_chunks.values())
-    want = parts * chunks if arena else 0
+        chunks = DISPATCHED["chunks"]
+    want = parts * chunks
     log(f"{tag}: arena uploads {counts.get('chunks', 0)}, page-locked "
         f"{counts.get('pinned', 0)}, {counts.get('bytes', 0)} bytes for {chunks} chunks")
     if not chunks or counts.get("chunks", 0) != want or counts.get("pinned", 0) != want:
@@ -1030,6 +1035,7 @@ def rank_main(argv) -> int:
     stage split and busy ms on the card as the last line of its output."""
     on_card = torch.device(os.environ["FQTOOL_TPU_TORCH_DEVICE"]).type == "cuda"
     act = torch.profiler.ProfilerActivity
+    _count_chunks()
     _reset_launches()
     tracing.reset()
     with torch.profiler.profile(activities=[act.CUDA if on_card else act.CPU]) as prof:
@@ -1039,7 +1045,7 @@ def rank_main(argv) -> int:
     busy_ms, _ = _device_busy(prof)
     print(json.dumps({"launches": overlap_cuda.launches,
                       "stats_launches": stats_cuda.launches,
-                      "chunks": sum(runner.transport_chunks.values()),
+                      "chunks": DISPATCHED["chunks"],
                       "staged": dict(staged), "busy_ms": busy_ms,
                       "stages": tracing.snapshot()}), flush=True)
     return rc
@@ -1184,7 +1190,7 @@ def phase_multihost(work: Path, a1: Path, a2: Path, pairs: int, fq: Path, reads:
 
 
 # ---------------------------------------------------------------------------
-# the device split and the transports
+# the device split and the switches
 TWO_DEVICES = "cuda:0,cuda:0"
 SE_ALL_FAILED = SE_ALL + ["--failed_out", "failed.fq.gz"]
 
@@ -1232,13 +1238,10 @@ def phase_devices(work: Path, a1: Path, a2: Path, pairs: int,
     return launches
 
 
-# name -> (environment, the transport every chunk must take)
-TRANSPORTS = {
-    "packed5": ({"FQTOOL_TPU_PACKED": "1", "FQTOOL_TPU_PACKED5": "1"}, "b5"),
-    "packed8": ({"FQTOOL_TPU_PACKED": "1", "FQTOOL_TPU_PACKED5": "0"}, "b8"),
-    "inblob": ({"FQTOOL_TPU_INBLOB": "1"}, "raw"),
-    "pack_overlap": ({"FQTOOL_TPU_PACK_OVERLAP": "1"}, "raw"),
-    "headcache_off": ({"FQTOOL_TPU_HEADCACHE": "0"}, "raw"),
+# name -> the environment of a run that must equal the default run
+SWITCHES = {
+    "pack_overlap": {"FQTOOL_TPU_PACK_OVERLAP": "1"},
+    "headcache_off": {"FQTOOL_TPU_HEADCACHE": "0"},
 }
 
 
@@ -1257,7 +1260,7 @@ def _with_env(env: dict, fn):
 
 
 def upload_mbps(dev, pinned: bool, nbytes: int = 16 << 20, rounds: int = 5) -> float:
-    """MB/s (MiB a second, as the link probe counts) of one ``nbytes``
+    """MB/s (MiB a second) of one ``nbytes``
     upload to ``dev`` from pageable or page-locked host memory: the fastest
     of ``rounds`` copies, each ending in a synchronize of the card."""
     host = torch.ones(nbytes, dtype=torch.uint8, pin_memory=pinned)
@@ -1273,65 +1276,26 @@ def upload_mbps(dev, pinned: bool, nbytes: int = 16 << 20, rounds: int = 5) -> f
     return (nbytes / (1 << 20)) / best
 
 
-def _phase_decode(dev: str) -> None:
-    """decode_device and decode5_device on the card against the CPU and the
-    planes they encode: 65,536 reads of 151 bp with binned qualities."""
-    seq, qual, _ = make_reads(SE_CHUNK, seed=77)
-    s = np.zeros((SE_CHUNK, 152), np.uint8)
-    q = np.zeros((SE_CHUNK, 152), np.uint8)
-    s[:, :151] = seq
-    q[:, :151] = QUAL_BIN_TABLE[qual]
-    enc = packed.encode_host(s, q)
-    e5 = None if enc is None else packed.encode5_host(enc)
-    if e5 is None:
-        raise SystemExit("binned reads did not encode to the 5-bit transport")
-    outs, ms = {}, {}
-    for d in ("cpu", dev):
-        t = torch.as_tensor(enc).to(d)
-        p5, d32 = (torch.as_tensor(a).to(d) for a in e5)
-        outs[d] = [x.cpu().numpy() for x in
-                   packed.decode_device(t) + packed.decode5_device(p5, d32, 152)]
-    ms = {"decode_device": _time_ms(lambda: packed.decode_device(t)),
-          "decode5_device": _time_ms(lambda: packed.decode5_device(p5, d32, 152))}
-    names = ["decode_device seq", "decode_device qual", "decode5_device seq",
-             "decode5_device qual"]
-    for name, a, b, want in zip(names, outs[dev], outs["cpu"], [s, q, s, q]):
-        if not (np.array_equal(a, b) and np.array_equal(a, want)):
-            raise SystemExit(f"{name}: {dev}, cpu and the original plane differ")
-    log(f"decode_device and decode5_device on {dev} equal the CPU and the original "
-        f"planes ({SE_CHUNK} x 152, tolerance 0); ms per chunk (CUDA events, 20 "
-        f"calls): " + json.dumps({k: round(v, 4) for k, v in ms.items()}))
-
-
-def phase_transports(work: Path, fq: Path, subset: int, se_reads: int,
-                     dev: str = "cuda") -> int:
+def phase_switches(work: Path, fq: Path, subset: int, se_reads: int,
+                   dev: str = "cuda") -> int:
     """Phase 14; returns the overlap kernel launches of its pe_full runs."""
-    os.environ.pop("FQTOOL_TPU_PACKED", None)
-    linkprobe._cached = None
-    mbps = linkprobe._probe_mbps(dev)
     rates = "not measured (no card)"
     if torch.device(dev).type == "cuda":
         rates = (f"pageable {upload_mbps(dev, False):.1f} MB/s, page-locked "
                  f"{upload_mbps(dev, True):.1f} MB/s")
-    log(f"link probe: {mbps:.1f} MB/s upload to {dev} (4 MiB pageable, fastest of "
-        f"{linkprobe._PROBE_ROUNDS}); 16 MiB upload, fastest of 5: {rates}; threshold "
-        f"{linkprobe.PACKED_THRESHOLD_MBPS} MB/s; use_packed() = "
-        f"{linkprobe.use_packed(dev)}")
-    _phase_decode(dev)
-    b1 = bin_qualities(work / "as1.fq", work / "bs1.fq")  # phase 8's pairs
-    b2 = bin_qualities(work / "as2.fq", work / "bs2.fq")
-    bse = bin_qualities(_head(fq, work / "se_head.fq", se_reads), work / "bse.fq")
+    log(f"16 MiB upload to {dev}, fastest of 5: {rates}")
+    pairs = (work / "as1.fq", work / "as2.fq")  # phase 8's pairs
+    head = _head(fq, work / "se_head.fq", se_reads)
     runs = {
-        "pe_full": (subset, lambda d: _run_pe_cli(work, d, (b1, b2), PE_FULL, dev)),
+        "pe_full": (subset, lambda d: _run_pe_cli(work, d, pairs, PE_FULL, dev)),
         "se_all_ora": (se_reads, lambda d: _run_se_cli(
-            work, bse, SE_ALL_FAILED + ["--ora"], dev, d)),
+            work, head, SE_ALL_FAILED + ["--ora"], dev, d)),
     }
     total = 0
     for tag, (n, run) in runs.items():
         calls, stat_calls = (1, 4) if tag == "pe_full" else (0, 2)
         chunks = -(-n // PE_CHUNK)
-        variants = [("default", ({}, "raw"))] + list(TRANSPORTS.items())
-        for name, (env, mode) in variants:
+        for name, env in [("default", {})] + list(SWITCHES.items()):
             _reset_launches()
             t0 = time.perf_counter()
             d = _with_env(env, lambda: run(f"tr_{tag}_{name}"))
@@ -1339,8 +1303,7 @@ def phase_transports(work: Path, fq: Path, subset: int, se_reads: int,
             launches = overlap_cuda.launches
             if dev == "cuda":
                 _check_stats_launches(f"{tag} {name}", stat_calls)
-                _check_staged(f"{tag} {name}", arena=name != "inblob")
-            took = dict(runner.transport_chunks)
+                _check_staged(f"{tag} {name}")
             total += launches
             if name == "default":
                 default = d
@@ -1348,19 +1311,17 @@ def phase_transports(work: Path, fq: Path, subset: int, se_reads: int,
             else:
                 names = _same_outputs(f"{tag} {name}", default, d)
             switches = " ".join(f"{k}={v}" for k, v in env.items()) or "no switch"
-            log(f"{tag} {name} ({switches}; {n} binned records): {secs:.3f} s; "
-                f"chunks by transport {took}; "
+            log(f"{tag} {name} ({switches}; {n} records): {secs:.3f} s; "
+                f"{DISPATCHED['chunks']} chunks; "
                 f"overlap kernel launches {launches}; {len(names)} output files"
                 + (" byte-identical to the default run, reports equal"
                    if name != "default" else ""))
-            if set(took) != {mode}:
-                raise SystemExit(f"{tag} {name}: chunks took {took}, all {mode} expected")
             if dev == "cuda" and launches != calls * chunks:
                 raise SystemExit(f"{tag} {name}: {launches} overlap kernel launches, "
                                  f"{calls * chunks} expected")
     prof = work / "profile"
     d = _with_env({"FQTOOL_TPU_PROFILE_DIR": str(prof)},
-                  lambda: _run_se_cli(work, bse, SE_ALL_FAILED + ["--ora"], dev,
+                  lambda: _run_se_cli(work, head, SE_ALL_FAILED + ["--ora"], dev,
                                       "tr_profile"))
     traces = sorted(prof.glob("fqtool_tpu_torch.*.trace.json"))
     if len(traces) != 1 or traces[0].stat().st_size == 0:
@@ -1381,6 +1342,7 @@ def main() -> int:
         sys.stderr.write("chip_smoke: torch sees no CUDA device\n")
         return 1
     t_start = time.perf_counter()
+    _count_chunks()
     phase_card()
     phase_build()
     entry = phase_kernel()
@@ -1401,8 +1363,8 @@ def main() -> int:
         launches += phase_multihost(work, a1, a2, args.pairs, fq, args.reads,
                                     min(args.subset, args.pairs))
         launches += phase_devices(work, a1, a2, args.pairs, pe_rates["pe_merge_corr"])
-        launches += phase_transports(work, fq, min(args.subset, args.pairs),
-                                     min(150_000, args.reads))
+        launches += phase_switches(work, fq, min(args.subset, args.pairs),
+                                   min(150_000, args.reads))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     entry["launches"] = launches

@@ -103,26 +103,25 @@ class ShardedResult:
 
 
 def dispatch_sharded(devices: Sequence, body, arrays: Sequence[np.ndarray],
-                     aux: Sequence = (), **kw) -> ShardedResult:
+                     **kw) -> ShardedResult:
     """Dispatch ``body`` over the rows of ``arrays`` split across
-    ``devices`` (pipeline/device.py::dispatch for each part, with the whole
-    ``aux``); returns the handle over the joined chunk."""
+    ``devices`` (pipeline/device.py::dispatch for each part); returns the
+    handle over the joined chunk."""
     # the parts with rows are a prefix of the split; a chunk of no rows
     # still runs one (empty) part, which gives the outputs their shapes
     bounds = [(lo, hi) for lo, hi in row_bounds(len(arrays[0]), len(devices))
               if hi > lo] or [(0, 0)]
-    parts = [dispatch(body, [a[lo:hi] for a in arrays], device, aux, **kw)
+    parts = [dispatch(body, [a[lo:hi] for a in arrays], device, **kw)
              for device, (lo, hi) in zip(devices, bounds)]
     return ShardedResult(parts, [hi - lo for lo, hi in bounds])
 
 
-def dispatch_on(devices: Sequence, body, arrays: Sequence[np.ndarray],
-                aux: Sequence = (), **kw):
+def dispatch_on(devices: Sequence, body, arrays: Sequence[np.ndarray], **kw):
     """One chunk on ``devices``: split across them when there are several,
     else dispatched whole on the one."""
     if len(devices) > 1:
-        return dispatch_sharded(devices, body, arrays, aux, **kw)
-    return dispatch(body, arrays, devices[0], aux, **kw)
+        return dispatch_sharded(devices, body, arrays, **kw)
+    return dispatch(body, arrays, devices[0], **kw)
 
 
 def _devices(devices) -> list:

@@ -13,8 +13,8 @@ read by the benchmark through :func:`snapshot`.
 - The registry holds, per name, the summed wall seconds and the number of
   calls, and under ``<name>@cpu`` the thread CPU time (``time.thread_time``)
   of the same spans.  A span on another thread than the main one (tokenize,
-  pack_encode, gzip_out, d2h, the shared pool's formatters) sums that
-  thread's time, which can exceed the wall.
+  gzip_out, d2h, the shared pool's formatters) sums that thread's time,
+  which can exceed the wall.
 - :func:`job` is the root span of one CLI invocation (``main.py::run``).  At
   its end it registers ``main_other``, the time of the job on its thread that
   no child span covers, so that the job thread's top-level stages plus

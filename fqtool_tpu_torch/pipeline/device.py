@@ -7,7 +7,6 @@ output dict back to numpy (the JAX pipelines' host contract)."""
 from __future__ import annotations
 
 import contextlib
-import os
 from collections import Counter
 from typing import Dict, Sequence, Tuple
 
@@ -98,24 +97,17 @@ def on_device(device: torch.device):
     return contextlib.nullcontext()
 
 
-def dispatch(body, arrays: Sequence[np.ndarray], device, aux: Sequence = (),
-             **kw) -> "PipelineResult":
-    """Upload one chunk's row planes ``arrays`` and the pack-level ``aux``
-    arrays (which keep their own shape), run ``body(*planes, *aux, **kw)`` on
-    ``device`` and return the handle over its output.  With
-    ``FQTOOL_TPU_INBLOB=1`` the chunk crosses as one int32 blob each way
-    (pipeline/blob.py); by default the planes and ``aux`` cross in one copy
-    of a :func:`pack` arena and each output tensor is copied back on its
-    own.  Traced: the stages ``dispatch_h2d`` (the packing and the upload)
-    and ``dispatch_launch`` (the body's launches), and on a card the chunk's
+def dispatch(body, arrays: Sequence[np.ndarray], device, **kw) -> "PipelineResult":
+    """Upload one chunk's row planes ``arrays`` in one copy of a :func:`pack`
+    arena, run ``body(*planes, **kw)`` on ``device`` and return the handle
+    over its output, whose tensors are copied back one by one.  Traced: the
+    stages ``dispatch_h2d`` (the packing and the upload) and
+    ``dispatch_launch`` (the body's launches), and on a card the chunk's
     interval on the card's timeline (host/tracing.py)."""
     device = torch.device(device)
     with on_device(device):
-        if os.environ.get("FQTOOL_TPU_INBLOB", "0") == "1":
-            from .blob import dispatch_blob
-            return dispatch_blob(body, arrays, aux, device, **kw)
         with stage("dispatch_h2d"):
-            arena, slots = pack(tuple(arrays) + tuple(aux), device)
+            arena, slots = pack(arrays, device)
             # the chunk's start on the card, just before its upload
             begun = tracing.card_begin(device)
             planes = upload(arena, slots, device)

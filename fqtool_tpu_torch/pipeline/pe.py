@@ -33,7 +33,6 @@ from ..ops import polyx as ops_polyx
 from ..ops import qualcut as ops_qualcut
 from ..ops import stats as ops_stats
 from ..ops.common import align
-from ..ops.packed import decode5_device, decode_device
 from .device import PipelineResult, dispatch
 
 
@@ -219,27 +218,6 @@ def pe_pipeline(seq1, qual1, lens1, seq2, qual2, lens2, start1, start2, keep,
     out["rlen2"] = rlen2.to(span_t)
     out["dropped1"], out["dropped2"] = drop1, drop2
     return out
-
-
-def pe_pipeline_packed(enc1, lens1, enc2, lens2, start1, start2, keep,
-                       **kw) -> Dict[str, object]:
-    """``pe_pipeline`` on the packed one-byte transport: each side's seq and
-    qual ride in one uint8 plane (ops/packed.py)."""
-    seq1, qual1 = decode_device(enc1)
-    seq2, qual2 = decode_device(enc2)
-    return pe_pipeline(seq1, qual1, lens1, seq2, qual2, lens2, start1, start2,
-                       keep, **kw)
-
-
-def pe_pipeline_packed5(enc5_1, lens1, enc5_2, lens2, start1, start2, keep,
-                        dict32_1, dict32_2, *, enc_width1: int, enc_width2: int,
-                        **kw) -> Dict[str, object]:
-    """``pe_pipeline`` on the 5-bit dictionary transport
-    (ops/packed.py::encode5_host), one dictionary per side."""
-    seq1, qual1 = decode5_device(enc5_1, dict32_1, enc_width1)
-    seq2, qual2 = decode5_device(enc5_2, dict32_2, enc_width2)
-    return pe_pipeline(seq1, qual1, lens1, seq2, qual2, lens2, start1, start2,
-                       keep, **kw)
 
 
 def pe_pipeline_call(arrays: Sequence[np.ndarray], device, p: KernelParams,

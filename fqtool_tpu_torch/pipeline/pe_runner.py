@@ -10,8 +10,8 @@ sampling and global record numbering; dist/multihost.py) and
 ``write_reports`` are copied from the JAX runner, and so are the cross-pack
 overlap of ``run`` (``FQTOOL_TPU_PACK_OVERLAP``) and the device split switch
 on every run path.  ``submit_pack`` slices each pack into the same device
-chunks as the JAX runner, uploads them on the raw, packed or 5-bit transport
-and dispatches the pipeline on one device or split across several
+chunks as the JAX runner, uploads each in one copy (pipeline/device.py) and
+dispatches the pipeline on one device or split across several
 (dist/sharding.py), so records, split files and gzip framing match the JAX
 CLI byte for byte.
 """
@@ -36,11 +36,11 @@ from ..host.umi import process_umi
 from ..io.fastq import (AsyncWriter, ReadPack, format_array_records,
                         format_plane_array_records)
 from ..ops.filters import PASS_FILTER
-from .pe import pe_pipeline, pe_pipeline_packed, pe_pipeline_packed5
+from .pe import pe_pipeline
 from .runner import (_TAG_BUF, _TAG_LEN, _TAG_OFF, SplitWriter, chunk_rows,
-                     drain_pipelined, encode_packs,
-                     index_filter_matches, loginfo, maybe_enable_sharding,
-                     prefetched, resolve_enc, submit_and_emit, transport_chunks)
+                     drain_pipelined, index_filter_matches, loginfo,
+                     maybe_enable_sharding, prefetched, submit_and_emit,
+                     timed_tokenize)
 
 # extended tag catalog: the fail-reason names plus the PE mate-fail tag
 _XTAG_BUF = _TAG_BUF + b"paired_read_is_failing"
@@ -245,9 +245,9 @@ class PairEndRunner:
 
         from ..io.headcache import iter_packs_paired_cached
         with device_profile(self.devices):
-            submit_and_emit(prefetched(encode_packs(iter_packs_paired_cached(
-                opt.in1, opt.in2, opt.interleaved_input, pack_reads, opt.phred64),
-                self.devices[0])), lambda packs: self.submit_pack(*packs), emit)
+            submit_and_emit(prefetched(timed_tokenize(iter_packs_paired_cached(
+                opt.in1, opt.in2, opt.interleaved_input, pack_reads, opt.phred64))),
+                lambda packs: self.submit_pack(*packs), emit)
         loginfo(f"processed {total} read pairs")
 
         with stage("writer_close"):
@@ -285,9 +285,9 @@ class PairEndRunner:
         unit = main_write_unit(opt)
         batch_units = max(1, pack_reads // unit)
         self._make_ora_defer(opt)
-        for u_lo, pack1, pack2 in prefetched(encode_packs(mh.iter_owned_pe(
+        for u_lo, pack1, pack2 in prefetched(timed_tokenize(mh.iter_owned_pe(
                 opt.in1, opt.in2, opt.interleaved_input,
-                unit, opt.phred64, batch_units), self.devices[0])):
+                unit, opt.phred64, batch_units))):
             self._pre_counter = u_lo * unit
             self._record_base = u_lo * unit
             r = self.complete_pack(self.submit_pack(pack1, pack2),
@@ -347,9 +347,9 @@ class PairEndRunner:
                    for name, path in split_streams + plain_streams if path}
         self._make_ora_defer(opt)
         rotation = {}
-        for gidx, pack1, pack2 in prefetched(encode_packs(mh.iter_owned_pe(
+        for gidx, pack1, pack2 in prefetched(timed_tokenize(mh.iter_owned_pe(
                 opt.in1, opt.in2, opt.interleaved_input,
-                pack_reads, opt.phred64, 1), self.devices[0])):
+                pack_reads, opt.phred64, 1))):
             self._pre_counter = gidx * pack_reads
             self._record_base = gidx * pack_reads
             r = self.complete_pack(self.submit_pack(pack1, pack2),
@@ -428,8 +428,6 @@ class PairEndRunner:
         opt = self.opt
         B = pack1.count
         with stage("pe_prep"):
-            resolve_enc(pack1)
-            resolve_enc(pack2)
             keep = np.ones(B, bool)
             if opt.index_filter.enabled:
                 keep = ~(index_filter_matches(opt, pack1, opt.index_filter.blacklist1)
@@ -447,42 +445,19 @@ class PairEndRunner:
                 self._rows = chunk_rows(B, cap)
         rows = self._rows
         kw = dict(p=self.p1, p2=self.p2, **self.args)
-        # packed transport: encodings attached per pack by encode_packs in
-        # the prefetch thread (link-probe gated); both sides must share the
-        # mode, else the chunk goes raw
-        e1, e2 = pack1.enc, pack2.enc
-        mode = "raw"
-        if e1 is not None and e2 is not None and e1[0] == e2[0]:
-            mode = e1[0]
         # dispatch every chunk, then fold in order: the device runs ahead on
         # later chunks while the host fetches/folds earlier ones
         pending = []
         lo = 0
         while lo < B:
             hi = min(lo + rows, B)
-            n = hi - lo
             with stage("pe_dispatch"):
-                rest = (start1[lo:hi], start2[lo:hi], keep[lo:hi])
-                if mode == "b5":
-                    call = dispatch_on(
-                        self.devices, pe_pipeline_packed5,
-                        (e1[1][lo:hi], pack1.lens[lo:hi],
-                         e2[1][lo:hi], pack2.lens[lo:hi]) + rest,
-                        aux=(e1[2], e2[2]), enc_width1=pack1.seq.shape[1],
-                        enc_width2=pack2.seq.shape[1], **kw)
-                elif mode == "b8":
-                    call = dispatch_on(
-                        self.devices, pe_pipeline_packed,
-                        (e1[1][lo:hi], pack1.lens[lo:hi],
-                         e2[1][lo:hi], pack2.lens[lo:hi]) + rest, **kw)
-                else:
-                    call = dispatch_on(
-                        self.devices, pe_pipeline,
-                        (pack1.seq[lo:hi], pack1.qual[lo:hi], pack1.lens[lo:hi],
-                         pack2.seq[lo:hi], pack2.qual[lo:hi],
-                         pack2.lens[lo:hi]) + rest, **kw)
-                transport_chunks[mode] += 1
-                pending.append((lo, n, call))
+                call = dispatch_on(
+                    self.devices, pe_pipeline,
+                    (pack1.seq[lo:hi], pack1.qual[lo:hi], pack1.lens[lo:hi],
+                     pack2.seq[lo:hi], pack2.qual[lo:hi], pack2.lens[lo:hi],
+                     start1[lo:hi], start2[lo:hi], keep[lo:hi]), **kw)
+                pending.append((lo, hi - lo, call))
             lo = hi
         return pack1, pack2, keep, start1, start2, pending
 

@@ -3,19 +3,18 @@ runners share.
 
 Copied from ``fqtool_tpu/pipeline/runner.py`` (which imports JAX at module
 level): the failed-stream tag catalog, the chunk-size buckets, the pack and
-write-unit framing, the packed-transport encoding of the prefetch thread
-(``encode_packs``, ``resolve_enc``), the pipelined drain of dispatched
-chunks, the cross-pack overlap switch (``submit_and_emit``), the device
-split switch (``maybe_enable_sharding``), the index
-filter, the split-output writer, the split rotation replay and the log line,
-and ``SingleEndRunner`` whose fold, ORA sampling (deferred in multi-host
-runs), adapter/polyG/polyX accounting, failed stream, multi-host runs
-(``_run_mh``, ``_run_mh_split``; dist/multihost.py) and reports are
-unchanged.  Its
-dispatch uploads each chunk, on the raw, packed or 5-bit transport, and runs
-the port's ``se_pipeline`` on one torch device or split across several
-(dist/sharding.py), with no padded rows.  Output record order is always
-input order (the reference run with one worker thread).
+write-unit framing, the pipelined drain of dispatched chunks, the
+cross-pack overlap switch (``submit_and_emit``), the device split switch
+(``maybe_enable_sharding``), the index filter, the split-output writer, the
+split rotation replay and the log line, and ``SingleEndRunner`` whose fold,
+ORA sampling (deferred in multi-host runs), adapter/polyG/polyX accounting,
+failed stream, multi-host runs (``_run_mh``, ``_run_mh_split``;
+dist/multihost.py) and reports are unchanged.  Its dispatch uploads each
+chunk in one copy (pipeline/device.py) and runs the port's ``se_pipeline``
+on one torch device or split across several (dist/sharding.py), with no
+padded rows.  The prefetch thread times its reads as ``tokenize``
+(``timed_tokenize``).  Output record order is always input order (the
+reference run with one worker thread).
 """
 
 from __future__ import annotations
@@ -23,7 +22,6 @@ from __future__ import annotations
 import os
 import sys
 import time
-from collections import Counter
 from typing import List, Optional
 
 import numpy as np
@@ -41,7 +39,7 @@ from ..host.umi import process_umi
 from ..io.fastq import (AsyncWriter, OutputWriter, ReadPack,
                         format_selected, prefetch_iter)
 from ..ops.filters import FAILED_TYPES
-from .se import se_pipeline, se_pipeline_packed, se_pipeline_packed5
+from .se import se_pipeline
 
 # tag catalog for failed-stream suffixes: one buffer + per-code offsets
 _TAG_BUF = b"".join(t.encode() for t in FAILED_TYPES)
@@ -55,62 +53,17 @@ def failed_tags(results: np.ndarray):
     return _TAG_BUF, _TAG_OFF[results], _TAG_LEN[results]
 
 
-# chunks dispatched on each transport ("raw", "b8", "b5") since the last
-# reset; read by the tests and chip_smoke.py
-transport_chunks: Counter = Counter()
-
-
-def encode_packs(it, device="cuda"):
-    """Generator stage run inside the prefetch thread: attach the packed
-    transport encoding (ops/packed.py) to every ReadPack flowing through,
-    when the link probe to ``device`` enables packing (host/linkprobe.py).
-    The encode pass is independent of the host prep (UMI rewrites names
-    only; the index filter reads names only), so it overlaps the previous
-    pack's fold.
-
-    The resolved ``pack.enc`` is a mode tuple: ``("b5", packed, dict32)``
-    when FQTOOL_TPU_PACKED5 is not 0 and the pack's (base, qual) alphabet
-    fits the 5-bit dictionary transport (ops/packed.py::encode5_host), else
-    ``("b8", enc)``; None when the content is unencodable."""
-    from ..host.linkprobe import use_packed
-    from ..io.fastq import shared_pool
-    from ..ops.packed import encode5_host, encode_host
-
-    b5_ok = os.environ.get("FQTOOL_TPU_PACKED5", "1") == "1"
-
-    def enc_one(p):
-        with stage("pack_encode"):
-            enc = encode_host(p.seq, p.qual)
-            if enc is None:
-                return None
-            if b5_ok:
-                e5 = encode5_host(enc)
-                if e5 is not None:
-                    return ("b5",) + e5
-            return ("b8", enc)
-
+def timed_tokenize(it):
+    """Generator stage run inside the prefetch thread: each ``next`` of
+    ``it`` (gunzip, parse and pack build) is the thread-side stage
+    ``tokenize``, which overlaps the main loop."""
     it = iter(it)
     while True:
-        # thread-side stage totals: tokenize = gunzip+parse+pack build,
-        # pack_encode = packed-transport LUT pass (both overlap the main loop)
         with stage("tokenize"):
             item = next(it, None)
         if item is None:
             return
-        if use_packed(device):
-            packs = (item,) if isinstance(item, ReadPack) else item
-            for p in packs:
-                if isinstance(p, ReadPack):
-                    # encode on the shared pool: overlaps the next pack's
-                    # tokenize; the dispatcher resolves the future
-                    p.enc = shared_pool().submit(enc_one, p)
         yield item
-
-
-def resolve_enc(pack) -> None:
-    """Materialize a pack's in-flight transport encoding (see encode_packs)."""
-    if pack.enc is not None and hasattr(pack.enc, "result"):
-        pack.enc = pack.enc.result()
 
 
 def maybe_enable_sharding(devices: List[torch.device]) -> List[torch.device]:
@@ -434,9 +387,9 @@ class SingleEndRunner:
 
         from ..io.headcache import iter_packs_cached
         with device_profile(self.devices):
-            submit_and_emit(prefetched(encode_packs(
-                iter_packs_cached(opt.in1, pack_reads, opt.phred64),
-                self.devices[0])), self.submit_pack, emit)
+            submit_and_emit(prefetched(timed_tokenize(
+                iter_packs_cached(opt.in1, pack_reads, opt.phred64))),
+                self.submit_pack, emit)
         loginfo(f"processed {total} reads")
 
         with stage("writer_close"):
@@ -471,9 +424,8 @@ class SingleEndRunner:
             from ..host.ora_defer import DeferredOraSampler
             self._ora_post_defer = DeferredOraSampler(
                 opt.over_rep.sampling, self.post_stats)
-        for u_lo, pack in prefetched(encode_packs(
-                mh.iter_owned_se(opt.in1, unit, opt.phred64, batch_units),
-                self.devices[0])):
+        for u_lo, pack in prefetched(timed_tokenize(
+                mh.iter_owned_se(opt.in1, unit, opt.phred64, batch_units))):
             # ORA pre-sampling strides over the GLOBAL stream order; units
             # are fixed-size so the base index is unit_idx * unit.  (Post
             # sampling is deferred to the global replay below.)
@@ -537,9 +489,8 @@ class SingleEndRunner:
             self._ora_post_defer = DeferredOraSampler(
                 opt.over_rep.sampling, self.post_stats)
         rotation = {}
-        for gidx, pack in prefetched(encode_packs(
-                mh.iter_owned_se(opt.in1, pack_reads, opt.phred64, 1),
-                self.devices[0])):
+        for gidx, pack in prefetched(timed_tokenize(
+                mh.iter_owned_se(opt.in1, pack_reads, opt.phred64, 1))):
             self._pre_counter = gidx * pack_reads
             self._record_base = gidx * pack_reads
             outstr, failedstr, read_passed = self.complete_pack(
@@ -608,7 +559,6 @@ class SingleEndRunner:
         opt = self.opt
         B = pack.count
         with stage("se_prep"):
-            resolve_enc(pack)
             keep = np.ones(B, bool)
             if opt.index_filter.enabled:
                 keep = ~index_filter_matches(opt, pack, opt.index_filter.blacklist1)
@@ -628,28 +578,13 @@ class SingleEndRunner:
         kw = dict(p=self.params, adapter_r1=self.adapter_r1,
                   use_start0=bool(opt.umi.enabled),
                   with_kmer=bool(opt.kmer.enabled))
-        # packed transport: the encoding is attached to the pack by
-        # encode_packs in the prefetch thread (link-probe gated); None when
-        # packing is off or the content is unencodable
-        enc = pack.enc
-        mode = "raw" if enc is None else enc[0]
         pending = []  # one (rows, handle) per chunk, for drain_pipelined
         lo = 0
         while lo < B:
             hi = min(lo + rows, B)
-            rest = (pack.lens[lo:hi], start0[lo:hi], keep[lo:hi])
-            if mode == "b5":
-                call = dispatch_on(self.devices, se_pipeline_packed5,
-                                   (enc[1][lo:hi],) + rest, aux=(enc[2],),
-                                   enc_width=pack.seq.shape[1], **kw)
-            elif mode == "b8":
-                call = dispatch_on(self.devices, se_pipeline_packed,
-                                   (enc[1][lo:hi],) + rest, **kw)
-            else:
-                call = dispatch_on(self.devices, se_pipeline,
-                                   (pack.seq[lo:hi], pack.qual[lo:hi]) + rest,
-                                   **kw)
-            transport_chunks[mode] += 1
+            call = dispatch_on(self.devices, se_pipeline,
+                               (pack.seq[lo:hi], pack.qual[lo:hi], pack.lens[lo:hi],
+                                start0[lo:hi], keep[lo:hi]), **kw)
             pending.append((hi - lo, call))
             lo = hi
         return pack, start0, keep, pending

@@ -28,7 +28,6 @@ from ..ops import polyx as ops_polyx
 from ..ops import qualcut as ops_qualcut
 from ..ops import stats as ops_stats
 from ..ops.common import align
-from ..ops.packed import decode5_device, decode_device
 from .device import PipelineResult, dispatch
 
 
@@ -112,21 +111,6 @@ def se_pipeline(seq, qual, lens, start0, keep, p: KernelParams,
     out["rlen"] = rlen.to(span_t)
     out["dropped"] = dropped
     return out
-
-
-def se_pipeline_packed(enc, lens, start0, keep, **kw) -> Dict[str, object]:
-    """``se_pipeline`` on the packed one-byte transport: ``enc`` carries seq
-    and qual in one uint8 plane (ops/packed.py)."""
-    seq, qual = decode_device(enc)
-    return se_pipeline(seq, qual, lens, start0, keep, **kw)
-
-
-def se_pipeline_packed5(packed, lens, start0, keep, dict32, *, enc_width: int,
-                        **kw) -> Dict[str, object]:
-    """``se_pipeline`` on the 5-bit dictionary transport
-    (ops/packed.py::encode5_host); ``enc_width`` is the pack's plane width."""
-    seq, qual = decode5_device(packed, dict32, enc_width)
-    return se_pipeline(seq, qual, lens, start0, keep, **kw)
 
 
 def se_pipeline_call(arrays: Sequence[np.ndarray], device, p: KernelParams,

@@ -73,9 +73,8 @@ def test_the_scan_sees_the_port_and_the_smoke_helpers():
             "fqtool_tpu_torch/io/fastq.py", "fqtool_tpu_torch/host/tracing.py",
             "fqtool_tpu_torch/dist/multihost.py", "fqtool_tpu_torch/dist/ingest.py",
             "fqtool_tpu_torch/dist/sharding.py", "fqtool_tpu_torch/entry.py",
-            "fqtool_tpu_torch/ops/packed.py", "fqtool_tpu_torch/host/linkprobe.py",
-            "fqtool_tpu_torch/host/profile.py", "fqtool_tpu_torch/pipeline/blob.py",
-            "fqtool_tpu_torch/ops/kernel_lib.py", "fqtool_tpu_torch/ops/stats_cuda.py",
+            "fqtool_tpu_torch/host/profile.py", "fqtool_tpu_torch/ops/kernel_lib.py",
+            "fqtool_tpu_torch/ops/stats_cuda.py",
             "chip_smoke.py", "overlap_ab.py", "cli_ab.py", "tests/oracle.py",
             "tests/torch_pairs.py", "tests/torch_reads.py"} <= rel
     bad = ast.parse("import fqtool_tpu.ops\nfrom jax import numpy\n"

@@ -4,8 +4,8 @@ on its own: it imports nothing of the JAX package ``fqtool_tpu``.
 A subprocess installs an import hook that refuses ``jax``, ``jaxlib``,
 ``fqtool_tpu`` and ``fqtool_tpu.*`` (not ``fqtool_tpu_torch``), then runs the
 port's CLI on a small paired or single-end input on the CPU (a paired-end
-run with every stage among them, and runs split over three CPU devices on
-the packed and one-blob transports), imports ``chip_smoke``, ``cli_ab``
+run with every stage among them, and a run split over three CPU devices
+with the cross-pack overlap), imports ``chip_smoke``, ``cli_ab``
 and ``overlap_ab`` (and with them everything the smoke run and the A/B
 scripts use), and checks that none of them was loaded on the way; and runs
 ``python -m fqtool_tpu_torch.entry`` under the same hook.
@@ -90,13 +90,12 @@ def test_port_paired_end_all_stages_run_without_jax(tmp_path):
     assert (tmp_path / "m.fq.gz").stat().st_size > 0
 
 
-def test_port_sharded_transports_run_without_jax(tmp_path):
+def test_port_sharded_overlapped_run_without_jax(tmp_path):
     write_pairs(tmp_path / "r1.fq", tmp_path / "r2.fq", 500, seed=6, adapters=True)
     proc = _run_without_jax(tmp_path, [
         "-i", "r1.fq", "-I", "r2.fq", "-o", "o1.fq.gz", "-O", "o2.fq.gz",
         "-m", "--merge_output", "m.fq.gz", "-c", "-d"],
-        FQTOOL_TPU_TORCH_DEVICE="cpu,cpu,cpu", FQTOOL_TPU_PACKED="1",
-        FQTOOL_TPU_INBLOB="1", FQTOOL_TPU_PACK_OVERLAP="1")
+        FQTOOL_TPU_TORCH_DEVICE="cpu,cpu,cpu", FQTOOL_TPU_PACK_OVERLAP="1")
     assert "data-parallel over 3 devices" in proc.stderr
     assert (tmp_path / "m.fq.gz").stat().st_size > 0
 

@@ -1,31 +1,29 @@
-"""The transport paths of fqtool_tpu_torch against fqtool_tpu's.
+"""The upload path of fqtool_tpu_torch, and its CLI under the transport
+switches of fqtool_tpu.
 
-- ``ops/packed.py``: the host encoders equal the JAX module's, and
-  ``decode_device``/``decode5_device`` equal JAX's on the same planes (every
-  byte value included) and give back the original planes;
-- ``pipeline/blob.py``: the three cases of ``tests/test_input_blob.py`` on
-  the port's one-blob dispatch, and the pipelines' output dicts through it;
-- ``host/linkprobe.py``: the four cases of ``tests/test_linkprobe.py``;
 - the CLI under ``FQTOOL_TPU_PACKED=1`` with ``FQTOOL_TPU_PACKED5`` 1 and 0,
-  ``FQTOOL_TPU_INBLOB=1``, ``FQTOOL_TPU_PACK_OVERLAP=1`` and
-  ``FQTOOL_TPU_HEADCACHE=0``, single-end and paired-end: byte for byte equal
-  to the port's default run, and record for record, report for report equal
-  to ``fqtool_tpu.main`` under the same variable (on one device, where its
+  and under ``FQTOOL_TPU_INBLOB=1``, which the port does not read: every
+  chunk still crosses through the arena, and the output is byte for byte
+  the port's default run and record for record, report for report
+  ``fqtool_tpu.main`` under the same variable (on one device, where its
   input blob is not overridden by a mesh).  The inputs have binned
-  qualities (six values), so the 5-bit transport takes every pack; packs of
-  128-256 records, so the cross-pack overlap has packs to overlap;
-  ``--ora`` with ``FQTOOL_TPU_HEADCACHE=0``, so the head cache is on in its
-  default run;
+  qualities (six values), so the JAX package's 5-bit transport takes every
+  pack.  ``FQTOOL_TPU_PACK_OVERLAP=1`` and ``FQTOOL_TPU_HEADCACHE=0`` the
+  same way, with packs of 128-256 records, so the cross-pack overlap has
+  packs to overlap, and ``--ora`` with ``FQTOOL_TPU_HEADCACHE=0``, so the
+  head cache is on in its default run;
+- the CLI on the argv of each benchmark cell's configuration, on one CPU
+  device and split over three, against ``fqtool_tpu.main``;
 - ``FQTOOL_TPU_PROFILE_DIR`` writing a trace of a CPU run;
 - ``pipeline/device.py``'s arena (``pack``/``upload``): the layout, the
   typed views of every plane set the runners dispatch against
-  ``host_planes``, and the ``staged`` counter.  Marked ``card`` (they skip
-  where torch sees no CUDA card): the arena page-locked on every upload,
-  ``se_pipeline_call``/``pe_pipeline_call`` on the card equal to the
-  pipelines fed by one pageable copy a plane, and the kernels' load widths
-  on the arena's views equal to those on planes allocated one by one.  JAX
-  is imported inside the tests that compare with it, so on the card this
-  file runs as
+  ``host_planes``, one upload a part in ``dispatch_on``, the ``staged``
+  counter, ``se_pipeline_call``/``pe_pipeline_call`` equal to the pipelines
+  fed one copy a plane, and the kernels' load widths on the arena's views
+  equal to those on planes allocated one by one.  The cases marked ``card``
+  skip where torch sees no CUDA card; on a card the arena is page-locked on
+  every upload.  JAX is imported inside the tests that compare with it, so
+  on the card this file runs as
 
     python -m pytest -p no:cacheprovider --noconftest -m card tests/test_torch_transport.py
 """
@@ -33,17 +31,17 @@
 from __future__ import annotations
 
 import json
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
+from fqtool_tpu_torch.dist.sharding import dispatch_on, row_bounds
 from fqtool_tpu_torch.entry import assert_same_outputs as same_outputs
-from fqtool_tpu_torch.host import linkprobe
-from fqtool_tpu_torch.io import native
-from fqtool_tpu_torch.ops import packed, stats_cuda
+from fqtool_tpu_torch.ops import stats_cuda
 from fqtool_tpu_torch.ops.kernel_lib import vector_width
-from fqtool_tpu_torch.pipeline import blob, device, runner
+from fqtool_tpu_torch.pipeline import device, pe_runner, runner
 from fqtool_tpu_torch.pipeline.device import dispatch, host_planes, outputs_to_numpy
 from fqtool_tpu_torch.pipeline.pe import pe_pipeline, pe_pipeline_call
 from fqtool_tpu_torch.pipeline.pe_runner import pipeline_args
@@ -51,175 +49,30 @@ from fqtool_tpu_torch.pipeline.se import se_pipeline, se_pipeline_call
 
 from .test_torch_cli import _compare_outputs, _run
 from .torch_multihost import assert_same_bytes
-from .torch_pairs import (ADAPTER_R1, _options, kernel_params_se, make_pairs,
-                          random_batch, write_pairs)
-from .torch_reads import QUAL_BIN_TABLE, bin_qualities, make_reads, write_reads
+from .torch_pairs import (ADAPTER_R1, _options, fastq_bytes, kernel_params_se,
+                          make_pairs, write_pairs)
+from .torch_reads import ADAPTER, bin_qualities, make_reads, write_reads
 
 
-@pytest.mark.parametrize("numpy_path", [False, True])
-def test_encoders_equal_jax_and_decoders_invert_them(monkeypatch, numpy_path):
-    import jax.numpy as jnp
-    from fqtool_tpu.ops import packed as jpacked
+@pytest.fixture
+def dispatched(monkeypatch):
+    """The rows of each chunk that the runners hand to ``dispatch_on``, one
+    entry a chunk, from the moment the fixture is set up."""
+    rows = []
 
-    if numpy_path:  # the numpy code instead of the native single pass
-        monkeypatch.setattr(native, "get_lib", lambda: None)
-    seq, qual, _ = random_batch(np.random.default_rng(3), 300, 152)
-    qual = np.minimum(qual, 33 + 49)  # inside the encodable range
-    enc = packed.encode_host(seq, qual)
-    np.testing.assert_array_equal(enc, jpacked._ENC_LUT[seq, qual])
-    for dec in (packed.decode_device(torch.as_tensor(enc)),
-                jpacked.decode_device(jnp.asarray(enc))):
-        np.testing.assert_array_equal(np.asarray(dec[0]), seq)
-        np.testing.assert_array_equal(np.asarray(dec[1]), qual)
-    # six quality values: the 5-bit form fits; 45 values: it does not
-    enc_b = packed.encode_host(seq, QUAL_BIN_TABLE[qual])
-    got = packed.encode5_host(enc_b)
-    assert got is not None and packed.encode5_host(enc) is None
-    p5, d32 = got
-    for width in (152, 150):
-        s, q = packed.decode5_device(torch.as_tensor(p5), torch.as_tensor(d32), width)
-        js, jq = jpacked.decode5_device(jnp.asarray(p5), jnp.asarray(d32), width)
-        np.testing.assert_array_equal(s.numpy(), np.asarray(js))
-        np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
-        np.testing.assert_array_equal(s.numpy(), seq[:, :width])
-        np.testing.assert_array_equal(q.numpy(), QUAL_BIN_TABLE[qual][:, :width])
+    def counted(devices, body, arrays, **kw):
+        rows.append(len(arrays[0]))
+        return dispatch_on(devices, body, arrays, **kw)
+
+    monkeypatch.setattr(runner, "dispatch_on", counted)
+    monkeypatch.setattr(pe_runner, "dispatch_on", counted)
+    return rows
 
 
-def test_decode_device_equals_jax_on_every_byte():
-    import jax.numpy as jnp
-    from fqtool_tpu.ops import packed as jpacked
-
-    enc = np.random.default_rng(1).integers(0, 256, (64, 40)).astype(np.uint8)
-    enc[0, :] = np.arange(40)
-    enc[1:8].reshape(-1)[:216] = np.arange(40, 256)
-    s, q = packed.decode_device(torch.as_tensor(enc))
-    js, jq = jpacked.decode_device(jnp.asarray(enc))
-    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
-    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
-    assert s.dtype == torch.uint8 and q.dtype == torch.uint8
-
-
-# --- tests/test_input_blob.py, ported ---------------------------------------
-def _mk_args(rng, n, width):
-    seq = rng.integers(65, 85, (n, width)).astype(np.uint8)
-    qual = rng.integers(33, 74, (n, width)).astype(np.uint8)
-    lens = rng.integers(1, width + 1, n).astype(np.int32)
-    keep = rng.random(n) < 0.8
-    real = np.ones(n, bool)
-    return (seq, qual, lens, keep, real)
-
-
-def _body(seq, qual, lens, keep, real, scale=1):
-    return {
-        "s": (seq.to(torch.int32) * scale).sum(dim=1),
-        "q": qual,
-        "mask": keep & real,
-        "lens": lens * 2,
-    }
-
-
-@pytest.mark.parametrize("n", [64, 41])
-def test_dispatch_blob_matches_per_array(n, monkeypatch):
-    args = _mk_args(np.random.default_rng(n), n, 37)
-    monkeypatch.setenv("FQTOOL_TPU_INBLOB", "0")
-    ref = dispatch(_body, args, "cpu", scale=3).get()
-    monkeypatch.setenv("FQTOOL_TPU_INBLOB", "1")
-    res = dispatch(_body, args, "cpu", scale=3)
-    assert isinstance(res, blob.BlobResult)
-    got = res.get()
-    assert set(ref) == set(got)
-    for k in ref:
-        assert got[k].dtype == ref[k].dtype, k
-        np.testing.assert_array_equal(ref[k], got[k], err_msg=k)
-
-
-def test_dispatch_blob_aux_args_not_padded(monkeypatch):
-    rng = np.random.default_rng(3)
-    args = _mk_args(rng, 20, 11)
-    lut = rng.integers(0, 255, 32).astype(np.uint8)
-
-    def body(seq, qual, lens, keep, real, lut):
-        return {"x": seq.to(torch.int32) + lut.to(torch.int32)[0],
-                "lut_sum": lut.to(torch.int32).sum()}
-
-    monkeypatch.setenv("FQTOOL_TPU_INBLOB", "0")
-    ref = dispatch(body, args, "cpu", aux=(lut,)).get()
-    monkeypatch.setenv("FQTOOL_TPU_INBLOB", "1")
-    got = dispatch(body, args, "cpu", aux=(lut,)).get()
-    for k in ref:
-        np.testing.assert_array_equal(ref[k], got[k], err_msg=k)
-    assert int(got["lut_sum"]) == int(lut.astype(np.int64).sum())
-
-
-def test_pack_roundtrip_spec():
-    from fqtool_tpu.pipeline import blob as jblob
-
-    rows, width = 16, 9
-    args = _mk_args(np.random.default_rng(0), 11, width)
-    spec, sections = blob._build_input_spec(rows, args)
-    host = blob.pack_input_blob(args, spec, sections)
-    jspec, jsections = jblob._build_input_spec(rows, args)
-    assert (spec, sections) == (jspec, jsections)
-    np.testing.assert_array_equal(host, jblob.pack_input_blob(args, jspec, jsections))
-    got = blob.unblob_inputs(torch.as_tensor(host), spec, sections)
-    for a, g in zip(args, got):
-        want = np.zeros((rows,) + a.shape[1:], a.dtype)
-        want[: a.shape[0]] = a
-        np.testing.assert_array_equal(g.numpy(), want)
-
-
-@pytest.mark.parametrize("mode", ["se", "pe"])
-def test_pipeline_outputs_through_the_blob(monkeypatch, mode):
-    """Every output kind of both pipelines (NamedTuples, a None field,
-    uint32, int16, 0-d sums) survives ``blobify``/``unblobify``."""
-    from . import test_torch_pe_pipeline as pe_case
-    from . import test_torch_se_pipeline as se_case
-    from .test_torch_pe_pipeline import assert_same_outputs
-
-    def call():
-        if mode == "se":
-            seq, qual, lens, keep = se_case.chunk(4, 96)
-            return se_pipeline_call(
-                (seq, qual, lens, np.zeros(96, np.int32), keep), "cpu",
-                se_case.kernel_params_se(*se_case.ALL), adapter_r1=se_case.ADAPTER,
-                with_kmer=True)
-        planes, start1, start2, keep = pe_case.chunk(5, 96)
-        opt = _options(pe_case.PE + pe_case.CASES["umi-per-read-all"])
-        return pe_pipeline_call(planes + [start1, start2, keep], "cpu",
-                                opt.kernel_params(is_r2=False),
-                                opt.kernel_params(is_r2=True), **pipeline_args(opt))
-
-    monkeypatch.setenv("FQTOOL_TPU_INBLOB", "0")
-    ref = call().get()
-    monkeypatch.setenv("FQTOOL_TPU_INBLOB", "1")
-    assert_same_outputs(ref, call().get())
-
-
-# --- tests/test_linkprobe.py, ported ----------------------------------------
-def test_env_forces(monkeypatch):
-    monkeypatch.setenv("FQTOOL_TPU_PACKED", "1")
-    assert linkprobe.use_packed("cpu") is True
-    monkeypatch.setenv("FQTOOL_TPU_PACKED", "0")
-    assert linkprobe.use_packed("cpu") is False
-
-
-def test_auto_fast_link_disables(monkeypatch):
-    monkeypatch.delenv("FQTOOL_TPU_PACKED", raising=False)
-    monkeypatch.setattr(linkprobe, "_cached", None)
-    # in-process CPU "transfers" run at memcpy speed, far above the threshold
-    assert linkprobe.use_packed("cpu") is False
-    assert linkprobe._cached is False
-
-
-def test_auto_slow_link_enables(monkeypatch):
-    monkeypatch.delenv("FQTOOL_TPU_PACKED", raising=False)
-    monkeypatch.setattr(linkprobe, "_cached", None)
-    monkeypatch.setattr(linkprobe, "_probe_mbps", lambda device: 50.0)
-    assert linkprobe.use_packed("cpu") is True
-
-
-def test_probe_measures_something():
-    assert linkprobe._probe_mbps("cpu") > 0.0
+def _parts(rows: int, devices: int) -> int:
+    """Parts ``dispatch_on`` uploads for a chunk of ``rows`` rows: one a
+    device with rows, and one for a chunk of none."""
+    return max(1, min(rows, devices))
 
 
 # --- the CLI under each transport switch -----------------------------------
@@ -249,7 +102,8 @@ def _jax_calls():
 
 @pytest.mark.parametrize("mode", ["se", "pe"])
 @pytest.mark.parametrize("variant", list(VARIANTS))
-def test_cli_transport_switch(tmp_path, monkeypatch, capfd, variant, mode):
+def test_cli_transport_switch(tmp_path, monkeypatch, capfd, dispatched, variant,
+                              mode):
     from fqtool_tpu.main import main as jax_main
     from fqtool_tpu_torch.main import main as torch_main
 
@@ -270,18 +124,111 @@ def test_cli_transport_switch(tmp_path, monkeypatch, capfd, variant, mode):
         monkeypatch.setattr(call, "_mesh", None)
     monkeypatch.setenv("FQTOOL_TPU_TORCH_DEVICE", "cpu")
     assert _run(torch_main, argv, tmp_path / "default") == 0
-    runner.transport_chunks.clear()
+    dispatched.clear()
+    device.staged.clear()
     for k, v in VARIANTS[variant].items():
         monkeypatch.setenv(k, v)
     capfd.readouterr()
     assert _run(torch_main, argv, tmp_path / "torch") == 0
+    # every chunk through the arena, whatever the variable says
+    staged = dict(device.staged)
+    assert len(dispatched) >= 3 and staged["chunks"] == len(dispatched), staged
+    assert staged["pinned"] == 0
     assert _run(jax_main, argv, tmp_path / "jax") == 0
-    chunks = dict(runner.transport_chunks)
-    want = {"packed5": "b5", "packed8": "b8"}.get(variant, "raw")
-    assert set(chunks) == {want} and chunks[want] >= 3, chunks
     assert_same_bytes(tmp_path / "default", tmp_path / "torch")
     _, _, n = _compare_outputs(tmp_path)
     assert n > 0
+
+
+# the argv of each benchmark cell's configuration (benchmark/configs/<name>.json),
+# with the paths of its outputs and reports relative to the run's directory
+CELL_ARGV = {
+    "pe_readme": ["-o", "out1.fq.gz", "-O", "out2.fq.gz",
+                  "-q", "--kmer", "--kmer_length", "6", "-d", "-a",
+                  "--detect_pe_adapter", "-J", "report.json", "-H", "report.html"],
+    "pe_merge_corr": ["-o", "out1.fq.gz", "-O", "out2.fq.gz",
+                      "-q", "-m", "--merge_output", "merged.fq.gz", "-c",
+                      "--unpaired_read1", "up1.fq.gz", "--unpaired_read2",
+                      "up2.fq.gz", "--failed_out", "failed.fq.gz",
+                      "-J", "report.json", "-H", "report.html"],
+    "se_fastp_default": ["-o", "out1.fq.gz",
+                         "-q", "-Q", "15", "-U", "0.4", "-N", "5", "-l",
+                         "--min_length", "15", "-a", "--adapter_of_read1",
+                         ADAPTER.decode(), "-g", "-d",
+                         "-J", "report.json", "-H", "report.html"],
+}
+_JAX_CELL = {}  # config -> (its input argv, fqtool_tpu.main's output dir)
+
+
+def _write_cell_inputs(d, paired: bool) -> list:
+    """Inputs for a cell's argv in ``d``, as ``-i``/``-I`` argv: 300 pairs of
+    150 bases that read the TruSeq adapters past the insert, or 400 single
+    reads of 151 bases that read the adapter of read 1 and then G past the
+    fragment (at the cell's 75 bases few of a few hundred reads would reach
+    it).  In each mate 20 reads are of low quality, 20 hold six N and 20 go
+    dark (G) from cycle 8, so that every filter of the argv has reads to
+    fail; qualities binned by ``bin_qualities``."""
+    rng = np.random.default_rng(43)
+    if paired:
+        s1, q1, s2, q2, _ = make_pairs(300, 41, 150, adapters=True)
+        mates = [(s1, q1), (s2, q2)]
+    else:
+        s, q, _ = make_reads(400, 42)
+        mates = [(s, q)]
+    argv = []
+    for mate, (s, q) in enumerate(mates, 1):
+        rows = rng.permutation(len(s))[:60]
+        q[rows[:20], :100] = 33 + 2
+        s[rows[20:40], 10:16] = ord("N")
+        q[rows[20:40], 10:16] = 33 + 2
+        s[rows[40:], 8:] = ord("G")
+        (d / f"raw{mate}.fq").write_bytes(fastq_bytes(s, q, mate, 0))
+        argv += ["-i" if mate == 1 else "-I",
+                 str(bin_qualities(d / f"raw{mate}.fq", d / f"r{mate}.fq"))]
+    return argv
+
+
+def _cell_run(name: str, tmp_path_factory) -> tuple:
+    """The inputs of ``name`` and ``fqtool_tpu.main``'s run on them, made
+    once for both device lists."""
+    if name not in _JAX_CELL:
+        from fqtool_tpu.main import main as jax_main
+
+        d = tmp_path_factory.mktemp(name)
+        inputs = _write_cell_inputs(d, name.startswith("pe_"))
+        assert _run(jax_main, inputs + CELL_ARGV[name], d / "jax") == 0
+        _JAX_CELL[name] = inputs, d / "jax"
+    return _JAX_CELL[name]
+
+
+@pytest.mark.parametrize("devices", ["cpu", "cpu,cpu,cpu"])
+@pytest.mark.parametrize("name", list(CELL_ARGV))
+def test_cli_cell_argv_matches_jax(tmp_path, tmp_path_factory, monkeypatch,
+                                   dispatched, name, devices):
+    """The port on a cell's argv equals ``fqtool_tpu.main`` record for
+    record and report for report, on one CPU device and split over three,
+    with one upload a part of every chunk; chunks of 128 rows, so a run
+    dispatches several."""
+    from fqtool_tpu_torch.main import main as torch_main
+
+    inputs, jax_dir = _cell_run(name, tmp_path_factory)
+    shutil.copytree(jax_dir, tmp_path / "jax")
+    monkeypatch.setattr(runner, "SE_CHUNK", 128)
+    monkeypatch.setattr(pe_runner, "PE_CHUNK", 128)
+    monkeypatch.setenv("FQTOOL_TPU_TORCH_DEVICE", devices)
+    device.staged.clear()
+    assert _run(torch_main, inputs + CELL_ARGV[name], tmp_path / "torch") == 0
+    k = len(devices.split(","))
+    assert len(dispatched) >= 3
+    assert device.staged["chunks"] == sum(_parts(n, k) for n in dispatched)
+    rep, outputs, n = _compare_outputs(tmp_path)
+    assert n > 0 and len(outputs) == len([a for a in CELL_ARGV[name]
+                                           if a.endswith(".fq.gz")])
+    failed = rep["FilterResult"]
+    assert failed["LowQualityReads"] > 0 and failed["TooManyNReads"] > 0, failed
+    assert failed.get("TooShortReads", 1) > 0, failed
+    if "-a" in CELL_ARGV[name]:
+        assert rep["AdapterTrim"]["AdapterTrimmedReads"] > 0
 
 
 def test_profile_dir_writes_a_trace(tmp_path, monkeypatch):
@@ -299,30 +246,47 @@ def test_profile_dir_writes_a_trace(tmp_path, monkeypatch):
 
 
 # --- pipeline/device.py's arena ---------------------------------------------
+def _on(dev: str) -> torch.device:
+    """``dev`` as a torch device; a card skips unless torch sees one
+    (decided here, never at import)."""
+    if dev == "cuda" and not torch.cuda.is_available():
+        pytest.skip("no CUDA card: this test uploads to the card")
+    return torch.device(dev)
+
+
 @pytest.fixture
 def card():
-    """Skip unless torch sees a CUDA card (decided here, never at import)."""
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA card: this test uploads to the card")
-    return torch.device("cuda")
+    return _on("cuda")
 
 
-def _se_arrays(rows: int, seed: int = 5):
+DEVICES = ["cpu", pytest.param("cuda", id="card", marks=pytest.mark.card)]
+
+
+def _umi_offsets(lens: np.ndarray, seed: int) -> np.ndarray:
+    """Non-zero int64 UMI offsets of 1-8 bases, none past its read's length,
+    as ``process_umi`` gives them (cast to int32 on the way)."""
+    rng = np.random.default_rng(seed)
+    return np.minimum(rng.integers(1, 9, len(lens)), lens).astype(np.int64)
+
+
+def _se_arrays(rows: int, seed: int = 5, umi: bool = False):
     """A single-end chunk as the runner dispatches it: (seq, qual) planes
     152 wide with zero padding past each length, int64 lengths and UMI
-    offsets (cast to int32 on the way), the index filter's keep."""
+    offsets (zero, or non-zero with ``umi``), the index filter's keep."""
     rng = np.random.default_rng(seed)
     s, q, _ = make_reads(rows, seed)
     lens = np.where(rng.random(rows) < 0.3, rng.integers(0, 152, rows), 151)
     pad = np.arange(152)[None, :] >= lens[:, None]
     seq = np.where(pad, 0, np.pad(s, ((0, 0), (0, 1)))).astype(np.uint8)
     qual = np.where(pad, 0, np.pad(q, ((0, 0), (0, 1)))).astype(np.uint8)
-    return seq, qual, lens, np.zeros(rows, np.int64), rng.random(rows) < 0.95
+    start0 = _umi_offsets(lens, seed + 100) if umi else np.zeros(rows, np.int64)
+    return seq, qual, lens, start0, rng.random(rows) < 0.95
 
 
-def _pe_arrays(rows: int, seed: int = 6):
+def _pe_arrays(rows: int, seed: int = 6, umi: bool = False):
     """A paired-end chunk as the runner dispatches it: (seq, qual, lens) of
-    each mate, widths 152 and 104, then the UMI offsets and keep."""
+    each mate, widths 152 and 104, then the UMI offsets (zero, or non-zero
+    with ``umi``) and keep."""
     rng = np.random.default_rng(seed)
     s1, q1, s2, q2, _ = make_pairs(rows, seed, 151, adapters=True)
     planes = []
@@ -332,32 +296,33 @@ def _pe_arrays(rows: int, seed: int = 6):
         pad = np.arange(w)[None, :] >= ln[:, None]
         planes += [np.where(pad, 0, np.pad(x, ((0, 0), (0, w - L)))).astype(np.uint8)
                    for x in (s, q)] + [ln.astype(np.int32)]
-    zeros = np.zeros(rows, np.int64)
-    return planes + [zeros, zeros, rng.random(rows) < 0.97]
+    if umi:
+        starts = [_umi_offsets(planes[2], seed + 100),
+                  _umi_offsets(planes[5], seed + 101)]
+    else:
+        starts = [np.zeros(rows, np.int64)] * 2
+    return planes + starts + [rng.random(rows) < 0.97]
 
 
-def _plane_set(name: str, rows: int):
-    """(row planes, aux) of one transport, as runner.py and pe_runner.py
-    pass them to ``dispatch``: raw planes, the one-byte encoding (``b8``)
-    or the 5-bit one with its dictionary as ``aux`` (``b5``)."""
-    mode, transport = name.split("_")
-    arrays = _se_arrays(rows) if mode == "se" else _pe_arrays(rows)
-    if transport == "raw":
-        return tuple(arrays), ()
-    mates = [arrays[:2]] if mode == "se" else [arrays[0:2], arrays[3:5]]
-    lens = [arrays[2]] if mode == "se" else [arrays[2], arrays[5]]
-    rest = tuple(arrays[3:]) if mode == "se" else tuple(arrays[6:])
-    row, aux = [], []
-    for (s, q), ln in zip(mates, lens):
-        enc = packed.encode_host(s, QUAL_BIN_TABLE[q])
-        if transport == "b5":
-            enc, d32 = packed.encode5_host(enc)
-            aux.append(d32)
-        row += [enc, ln]
-    return tuple(row) + rest, tuple(aux)
+def _plane_set(name: str, rows: int) -> tuple:
+    """A chunk's row planes as runner.py and pe_runner.py pass them to
+    ``dispatch``: ``raw`` with zero UMI offsets, ``umi`` with non-zero ones,
+    ``part`` the middle one of three parts of a ``umi`` chunk of
+    ``3 * rows + 1`` rows, the row slice ``dispatch_sharded`` hands over."""
+    mode, kind = name.split("_")
+    make = _se_arrays if mode == "se" else _pe_arrays
+    if kind == "part":
+        lo, hi = row_bounds(3 * rows + 1, 3)[1]
+        return tuple(a[lo:hi] for a in make(3 * rows + 1, umi=True))
+    return tuple(make(rows, umi=kind == "umi"))
 
 
-PLANE_SETS = ["se_raw", "pe_raw", "se_b8", "se_b5", "pe_b8", "pe_b5"]
+def _planes_out(*xs) -> dict:
+    """A body that returns the planes it was handed."""
+    return {str(i): x for i, x in enumerate(xs)}
+
+
+PLANE_SETS = ["se_raw", "pe_raw", "se_umi", "pe_umi", "se_part", "pe_part"]
 
 
 @pytest.mark.parametrize("rows", [0, 1, 37])
@@ -390,34 +355,52 @@ def test_arena_layout(rows):
 
 @pytest.mark.parametrize("name", PLANE_SETS)
 def test_dispatch_views_equal_host_planes(name):
-    """Every plane set the runners dispatch (the ``dict32`` aux of ``b5``
-    included, in its own shape) reaches the body as views equal to
+    """Every plane set the runners dispatch (non-zero int64 UMI offsets and
+    a split part's row slice included) reaches the body as views equal to
     ``host_planes`` in value, dtype and shape; a chunk of no rows too."""
     for rows in (0, 45):
-        arrays, aux = _plane_set(name, rows)
-        got = dispatch(lambda *xs: {str(i): x for i, x in enumerate(xs)},
-                       arrays, "cpu", aux).get()
-        want = host_planes(arrays + aux)
+        arrays = _plane_set(name, rows)
+        got = dispatch(_planes_out, arrays, "cpu").get()
+        want = host_planes(arrays)
         assert len(got) == len(want)
         for i, h in enumerate(want):
             assert got[str(i)].dtype == h.dtype and got[str(i)].shape == h.shape
             np.testing.assert_array_equal(got[str(i)], h, err_msg=f"{name} {i}")
 
 
-def test_staged_counts_each_dispatch(monkeypatch):
+@pytest.mark.parametrize("k", [2, 3, 8])
+def test_dispatch_on_parts_uploads_each_part(k):
+    """``dispatch_on`` over k CPU devices uploads one arena a part with rows
+    (one for a chunk of none), of that part's bytes, and the parts' views,
+    joined in row order, equal ``host_planes`` of the whole chunk (the join
+    checks each part's row count); a chunk of fewer rows than devices too."""
+    devices = [torch.device("cpu")] * k
+    for name, rows in (("pe_umi", 45), ("se_umi", k - 1), ("se_raw", 0)):
+        arrays = _plane_set(name, rows)
+        bounds = [(lo, hi) for lo, hi in row_bounds(rows, k) if hi > lo] or [(0, 0)]
+        device.staged.clear()
+        got = dispatch_on(devices, _planes_out, arrays).get()
+        assert dict(device.staged) == {
+            "chunks": _parts(rows, k), "pinned": 0,
+            "bytes": sum(device.arena_layout([a[lo:hi] for a in arrays])[1]
+                         for lo, hi in bounds)}, name
+        want = host_planes(arrays)
+        assert len(got) == len(want)
+        for i, h in enumerate(want):
+            assert got[str(i)].dtype == h.dtype and got[str(i)].shape == h.shape
+            np.testing.assert_array_equal(got[str(i)], h, err_msg=f"{name} {i}")
+
+
+def test_staged_counts_each_dispatch():
     """One chunk and its arena's bytes a ``dispatch``, none of them pinned on
-    the CPU; the one-blob transport does not use the arena."""
-    monkeypatch.delenv("FQTOOL_TPU_INBLOB", raising=False)
+    the CPU."""
     device.staged.clear()
     nbytes = 0
-    for name, rows in (("se_raw", 64), ("pe_b5", 33), ("se_b8", 0)):
-        arrays, aux = _plane_set(name, rows)
-        dispatch(lambda *xs: {"n": xs[0]}, arrays, "cpu", aux).get()
-        nbytes += device.arena_layout(arrays + aux)[1]
+    for name, rows in (("se_raw", 64), ("pe_umi", 33), ("se_part", 0)):
+        arrays = _plane_set(name, rows)
+        dispatch(lambda *xs: {"n": xs[0]}, arrays, "cpu").get()
+        nbytes += device.arena_layout(arrays)[1]
     assert dict(device.staged) == {"chunks": 3, "pinned": 0, "bytes": nbytes}
-    monkeypatch.setenv("FQTOOL_TPU_INBLOB", "1")
-    dispatch(lambda *xs: {"n": xs[0]}, _plane_set("se_raw", 8)[0], "cpu").get()
-    assert device.staged["chunks"] == 3
 
 
 @pytest.mark.card
@@ -425,63 +408,73 @@ def test_card_arena_is_page_locked(card):
     """On a card every upload's arena is page-locked, and the body sees the
     chunk's values; a chunk of no rows still runs."""
     device.staged.clear()
-    for name, rows in (("se_raw", 4096), ("pe_raw", 1000), ("pe_b5", 77)):
-        arrays, aux = _plane_set(name, rows)
-        got = dispatch(lambda *xs: {str(i): x for i, x in enumerate(xs)},
-                       arrays, card, aux).get()
-        for i, h in enumerate(host_planes(arrays + aux)):
+    for name, rows in (("se_raw", 4096), ("pe_raw", 1000), ("pe_umi", 77)):
+        arrays = _plane_set(name, rows)
+        got = dispatch(_planes_out, arrays, card).get()
+        for i, h in enumerate(host_planes(arrays)):
             np.testing.assert_array_equal(got[str(i)], h, err_msg=f"{name} {i}")
     assert device.staged["chunks"] == 3
     assert device.staged["pinned"] == device.staged["chunks"]
-    empty = dispatch(lambda *xs: {"n": xs[0].sum()}, _plane_set("se_raw", 0)[0],
+    empty = dispatch(lambda *xs: {"n": xs[0].sum()}, _plane_set("se_raw", 0),
                      card).get()
     assert int(empty["n"]) == 0 and device.staged["chunks"] == 4
 
 
-def _pageable(body, arrays, card, **kw) -> dict:
-    """``body`` fed the way ``dispatch`` fed it before the arena: one
-    pageable copy a plane."""
-    planes = [torch.as_tensor(a).to(card, non_blocking=True)
+def _one_copy_a_plane(body, arrays, dev, **kw) -> dict:
+    """``body`` fed each plane as its own tensor on ``dev`` (on a card one
+    pageable copy a plane): the dispatch the arena replaced."""
+    planes = [torch.as_tensor(a).to(dev, non_blocking=True)
               for a in host_planes(arrays)]
     return outputs_to_numpy(body(*planes, **kw))
 
 
 PE_FLAGS = ["-i", "r1.fq", "-I", "r2.fq", "-o", "o1.fq", "-O", "o2.fq"]
+# mode, flags, the single-end call's arguments beyond ``p``
+PIPELINE_CASES = {
+    "se_all": ("se", ["-q", "-g", "-a", "--adapter_of_read1", ADAPTER_R1.decode(),
+                      "-d", "--kmer"], dict(adapter_r1=ADAPTER_R1, with_kmer=True)),
+    "pe_merge_corr": ("pe", ["-q", "-m", "--merge_output", "m.fq", "-c"], {}),
+    "pe_full": ("pe", ["-q", "--kmer", "-d", "-a", "--detect_pe_adapter"], {}),
+    "se_chip75": ("se", CELL_ARGV["se_fastp_default"][2:-4],
+                  dict(adapter_r1=ADAPTER)),
+    "se_umi": ("se", ["-q", "-g", "-x", "-d"], dict(use_start0=True)),
+}
 
 
-@pytest.mark.card
-@pytest.mark.parametrize("mode,flags", [
-    ("se", ["-q", "-g", "-a", "--adapter_of_read1", ADAPTER_R1.decode(), "-d",
-            "--kmer"]),
-    ("pe", ["-q", "-m", "--merge_output", "m.fq", "-c"]),
-    ("pe", ["-q", "--kmer", "-d", "-a", "--detect_pe_adapter"])])
-def test_card_pipeline_equals_pageable_upload(card, mode, flags):
-    """``se_pipeline_call``/``pe_pipeline_call`` on the card (the arena)
-    equal to the same pipeline fed one pageable copy a plane, key by key."""
+@pytest.mark.parametrize("case", list(PIPELINE_CASES))
+@pytest.mark.parametrize("dev", DEVICES)
+def test_pipeline_call_equals_body_on_host_planes(dev, case):
+    """``se_pipeline_call``/``pe_pipeline_call`` (the arena) equal to the
+    same pipeline fed one copy a plane, key by key: on the CPU and on a
+    card, where the arena is page-locked and the copy pageable."""
+    dev = _on(dev)
+    mode, flags, extra = PIPELINE_CASES[case]
+    rows = 16384 if dev.type == "cuda" else 2048
     if mode == "se":
-        arrays = _se_arrays(16384)
-        kw = dict(p=kernel_params_se(*flags), adapter_r1=ADAPTER_R1, with_kmer=True)
-        got = se_pipeline_call(arrays, card, **kw).get()
-        ref = _pageable(se_pipeline, arrays, card, **kw)
+        arrays = _se_arrays(rows, umi=extra.get("use_start0", False))
+        kw = dict(p=kernel_params_se(*flags), **extra)
+        got = se_pipeline_call(arrays, dev, **kw).get()
+        ref = _one_copy_a_plane(se_pipeline, arrays, dev, **kw)
     else:
-        arrays = _pe_arrays(16384)
+        arrays = _pe_arrays(rows)
         opt = _options(PE_FLAGS + flags)
         kw = dict(p=opt.kernel_params(is_r2=False), p2=opt.kernel_params(is_r2=True),
                   **pipeline_args(opt))
-        got = pe_pipeline_call(arrays, card, **kw).get()
-        ref = _pageable(pe_pipeline, arrays, card, **kw)
-    same_outputs(f"{mode} {' '.join(flags)}", ref, got)
+        got = pe_pipeline_call(arrays, dev, **kw).get()
+        ref = _one_copy_a_plane(pe_pipeline, arrays, dev, **kw)
+    same_outputs(f"{case} on {dev}", ref, got)
 
 
-@pytest.mark.card
-@pytest.mark.parametrize("name", ["se_raw", "pe_raw"])
-def test_card_kernels_see_the_same_vector_width(card, name):
-    """The overlap kernel's (8, 1) and the stats kernel's (16, 8, 1) load
-    widths on the arena's uint8 planes equal those on planes allocated one
-    by one, and every view starts at a multiple of 16 bytes."""
-    arrays, _ = _plane_set(name, 16384)
-    views = device.to_device(arrays, card)
-    alone = [torch.as_tensor(a).to(card) for a in host_planes(arrays)]
+@pytest.mark.parametrize("mode", ["se", "pe"])
+@pytest.mark.parametrize("dev", DEVICES)
+def test_arena_views_keep_kernel_alignment(dev, mode):
+    """Every view of the arena starts at a multiple of 16 bytes, and the
+    overlap kernel's (8, 1) and the stats kernel's (16, 8, 1) load widths on
+    its uint8 planes equal those on planes allocated one by one."""
+    dev = _on(dev)
+    arrays = _plane_set(f"{mode}_raw", 16384)
+    views = device.to_device(arrays, dev)
+    alone = [torch.tensor(a, device=dev) for a in host_planes(arrays)]
     for v, a in zip(views, alone):
         assert v.data_ptr() % 16 == 0
         if v.dim() == 2:
